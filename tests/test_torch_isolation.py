@@ -1,0 +1,68 @@
+"""The port stands alone: every module of popcorn_tpu_torch imports with
+jax and popcorn_tpu made unimportable, and no file of the package (nor
+chip_smoke.py) imports either."""
+
+import ast
+import os
+import subprocess
+import sys
+import textwrap
+
+import pytest
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(ROOT, "popcorn_tpu_torch")
+FORBIDDEN = ("jax", "jaxlib", "popcorn_tpu")
+
+
+def _sources():
+    out = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(PKG):
+        out += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    return sorted(out)
+
+
+def _imported_roots(path):
+    tree = ast.parse(open(path).read(), filename=path)
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module.split(".")[0]
+
+
+@pytest.mark.parametrize("path", _sources(), ids=lambda p: os.path.relpath(p, ROOT))
+def test_no_jax_or_reference_package_import(path):
+    bad = sorted(set(_imported_roots(path)) & set(FORBIDDEN))
+    assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
+
+
+def test_every_module_imports_without_jax():
+    code = textwrap.dedent(
+        """
+        import importlib, pkgutil, sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in ("jax", "jaxlib", "popcorn_tpu"):
+                    raise ImportError(f"blocked: {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import popcorn_tpu_torch
+        n = 0
+        for m in pkgutil.walk_packages(popcorn_tpu_torch.__path__, "popcorn_tpu_torch."):
+            importlib.import_module(m.name)
+            n += 1
+        assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "popcorn_tpu")]
+        print(n)
+        """
+    )
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert r.returncode == 0, r.stderr
+    assert int(r.stdout.strip()) >= 20
