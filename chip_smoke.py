@@ -15,10 +15,21 @@ Phases, each printing one JSON line:
   5. main    — the Bag-of-POPCORN eval through the eval CLI: a synthetic
                2304x2560 region, 5 members (DDA weights + seeded heads),
                patch 2048 / overlap 128, five GeoTIFFs and census metrics;
-               every kernel's launch count must rise during it.
-Then the {"kernels": [...]} summary, the nvidia-smi name/power line, and
-last {"ok": true, "device": {...}}. Any failure raises: the script exits
-non-zero and prints no result. Run from the repository root:
+               the launch counts of kernels A, B, C must rise during it;
+  6. train_step — one training step (the repo's DDA weights, a seeded
+               head, 2x192x160, a fixed sparsity mask) on the card against
+               the CPU plain path: loss, every gradient leaf, the update;
+  7. train   — the train CLI on the same region with the verify skill's
+               flags (1 epoch, 6 weak samples): finite losses, moved head,
+               launches of A, B, C and D, last_model.pth, which the eval
+               CLI then turns into finite maps with AdjCensus r2 > 0.9;
+               plus one full-width step at 2x2048^2 for its time and
+               memory.
+Kernel D (the head backward) is checked in phase 3 at the train phase's
+bucket shape (2x1024x1024) and at 2x2048^2. Then the {"kernels": [...]}
+summary, the nvidia-smi name/power line, and last {"ok": true, "device":
+{...}}. Any failure raises: the script exits non-zero and prints no
+result. Run from the repository root:
 
     python3 chip_smoke.py            # the whole run
     python3 chip_smoke.py --kernels  # phases 1-3 only (no result line)
@@ -47,7 +58,34 @@ PEAK_HBM_BYTES = 3.35e12
 # errors are ~1e-6 relative, so 1e-4 leaves room and still catches any
 # indexing or masking fault (those are O(1))
 RTOL = ATOL = 1e-4
+# kernel D's weight gradients are sums over up to 8.4M pixels, formed in
+# another order than cuBLAS's: held norm-relative, ||got-ref||/||ref||
+NORM_RTOL = 1e-5
+# Kernel D and the ReLU boundary. The backward's ReLU masks are
+# discontinuous: where a hidden pre-activation lies within float32
+# rounding of 0, the kernel and the plain version (cuBLAS) may take
+# different masks, and dx and the weight gradients differ by a whole term
+# there (seen at 2M px with random cotangents: dx max abs error 8.5e-3,
+# norm-relative 3.7e-4; weight gradients 5.4e-4, their sums over zero-mean
+# terms cancel). So kernel D is held twice: with the cotangent zeroed on
+# the pixels whose pre-activations come within BOUNDARY of 0, dx elementwise
+# at RTOL/ATOL and dx and the weight gradients norm-relative at NORM_RTOL;
+# and on all pixels, norm-relative at RAW_NORM_RTOL.
+BOUNDARY = 1e-4
+RAW_NORM_RTOL = 3e-3
+# the train step on the card against the CPU plain path: float32 through
+# cuDNN (TF32 off) vs the CPU's convs, two UNets and their backward; loss
+# and popcount at rtol 1e-4, each gradient leaf norm-relative 1e-4. The
+# update Adam makes of it is lr * g / (|g| + eps), which turns a float32
+# difference of a gradient near zero into up to the whole step: updates
+# are held norm-relative 1e-2 (2.7e-3 seen on an H100, gradients 6.2e-5)
+# and elementwise within 2 * lr.
+STEP_RTOL, STEP_UPDATE_RTOL = 1e-4, 1e-2
 KERNEL_REPS = 10
+# the train phase's larger batch: its 6 weak samples of the seeded
+# 2304x2560 region's 4x6 admin grid come in the buckets 2x1024x1024 and
+# 2x512x256 (the train phase checks that this one is among them)
+TRAIN_BUCKET = (2, 1024, 1024)
 
 
 def emit(obj) -> None:
@@ -275,6 +313,88 @@ def main() -> None:
             head_library(feats, n_out), flops, nbytes,
         )
     del feats
+
+    # kernel D: the head backward at the train phase's bucket and at a
+    # 2x2048^2 step (8.4M px, under limit1's 9M: the full-gradient tier)
+    def relu_boundary(x):
+        """Pixels with a hidden pre-activation within BOUNDARY of 0: there
+        the ReLU mask of the backward may differ between two float32
+        evaluations of the same forward."""
+        h = x.reshape(-1, 16)
+        near = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
+        for k in C.HEAD_LAYERS[:-1]:
+            z = torch.addmm(head[k]["b"], h, head[k]["w"])
+            near |= (z.abs() < BOUNDARY).any(1)
+            h = torch.relu(z)
+        return near
+
+    def head_bwd_library(x, g):
+        xl = x.reshape(-1, 16).detach().requires_grad_(True)
+        w = [head[k]["w"].detach().requires_grad_(True) for k in C.HEAD_LAYERS]
+        b = [head[k]["b"].detach().requires_grad_(True) for k in C.HEAD_LAYERS]
+        h = torch.relu(torch.addmm(b[0], xl, w[0]))
+        h = torch.relu(torch.addmm(b[1], h, w[1]))
+        h = torch.relu(torch.addmm(b[2], h, w[2]))
+        out = torch.addmm(b[3], h, w[3])
+        g2 = g.reshape(-1, 2)
+
+        def run():
+            return torch.autograd.grad(out, [xl, *w, *b], g2, retain_graph=True)
+
+        return run
+
+    # multiply-adds a pixel: the h1..h3 recompute, then g3..g1 and dx, and
+    # the same count again for dW4..dW1 (55,808 FLOPs)
+    flops_px = 2.0 * ((16 * 64 + 2 * 64 * 64) + 2 * (64 * 2 + 2 * 64 * 64 + 64 * 16))
+    wbytes = 4.0 * (16 * 64 + 2 * 64 * 64 + 64 * 2 + 3 * 64 + 2)
+    for lead, mult in ((TRAIN_BUCKET, 1), ((2, P, P), 0)):
+        x = rand(*lead, 16)
+        gout = rand(*lead, 2)
+        npx = math.prod(lead)
+        name = f"head_bwd {'x'.join(map(str, lead))}x16"
+        near = relu_boundary(x)
+        boundary_share = float(near.float().mean())
+
+        def errors(g):
+            dx, grads = C.head_bwd_cuda(head, x, g)
+            torch.cuda.synchronize()
+            dx_ref, grads_ref = C.head_bwd_plain(head, x, g)
+            torch.cuda.synchronize()
+            err = (dx - dx_ref).abs()
+            ok = bool((err <= ATOL + RTOL * dx_ref.abs()).all()) and bool(torch.isfinite(dx).all())
+            return ok, float(err.max()), float(err.max() / dx_ref.abs().max()), max(
+                float((a - r).norm() / r.norm().clamp_min(1e-30)) for a, r in zip(grads, grads_ref)
+            ), float((dx - dx_ref).norm() / dx_ref.norm())
+
+        # off the ReLU boundary (the cotangent zeroed on its pixels): tight
+        ok, max_abs, max_rel, norm_rel, dx_rel = errors(gout * (~near).view(*lead, 1))
+        # all pixels: only mask flips differ, held to the looser bound
+        _, raw_abs, _, raw_norm_rel, raw_dx_rel = errors(gout)
+        stats_d = {"max_abs_err": max_abs, "max_rel_err": max_rel, "grad_norm_rel_err": norm_rel,
+                   "dx_norm_rel_err": dx_rel, "relu_boundary_share": boundary_share,
+                   "raw_max_abs_err": raw_abs, "raw_grad_norm_rel_err": raw_norm_rel,
+                   "raw_dx_norm_rel_err": raw_dx_rel}
+        if not (ok and norm_rel <= NORM_RTOL and dx_rel <= NORM_RTOL
+                and max(raw_norm_rel, raw_dx_rel) <= RAW_NORM_RTOL):
+            emit({"phase": "kernel", "kernel": "head_bwd", "case": name, "failed": stats_d})
+            raise AssertionError(f"{name}: kernel D disagrees with its plain version: {stats_d}")
+        del near
+        k_ms = time_ms(lambda x=x, gout=gout: C.head_bwd_cuda(head, x, gout))
+        p_ms = time_ms(lambda x=x, gout=gout: C.head_bwd_plain(head, x, gout))
+        l_ms = time_ms(head_bwd_library(x, gout))
+        b_ms, by = bound(flops_px * npx, 4.0 * npx * (16 + 2 + 16) + wbytes * 2)
+        case = {
+            "phase": "kernel", "kernel": "head_bwd", "case": name, "per_member_calls": mult,
+            **stats_d, "rtol": RTOL, "atol": ATOL, "norm_rtol": NORM_RTOL,
+            "raw_norm_rtol": RAW_NORM_RTOL,
+            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
+            "bound_by": by, "gflop": flops_px * npx / 1e9,
+            "mbytes": (4.0 * npx * (16 + 2 + 16) + wbytes * 2) / 1e6,
+        }
+        emit(case)
+        cases.append(case)
+        del x, gout
+        torch.cuda.empty_cache()
     torch.cuda.empty_cache()
     if args.kernels:
         return
@@ -306,10 +426,33 @@ def main() -> None:
     from popcorn_tpu_torch.data.synthetic import make_synthetic_region
     from popcorn_tpu_torch.io.geotiff import GeoTIFF
 
+    eval_flags = ["-occmodel", "-senbuilds", "-S2", "-NIR", "-S1", "-treg", "rwa",
+                  "-tlevel", "coarse", "--num_workers", "4"]
+
+    def check_eval(stats, folder_glob):
+        bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
+        if bad:
+            raise AssertionError(f"non-finite metrics: {bad}")
+        r2 = stats["Population_AdjCensus_rwa_coarse/r2"]
+        if not r2 > 0.9:
+            raise AssertionError(f"AdjCensus coarse r2 {r2} <= 0.9")
+        folders = glob.glob(folder_glob)
+        if len(folders) != 1:
+            raise AssertionError(f"expected one output folder, found {folders}")
+        for tag in ("", "STD", "SCALE_rwa", "SCALE_STD", "ADJ_rwa"):
+            path = os.path.join(folders[0], f"rwa_predictions{tag}.tif")
+            with GeoTIFF(path) as gt:
+                a = gt.read(1, squeeze=True)
+            if a.shape != (2304, 2560) or not bool(np.isfinite(a).all()):
+                raise AssertionError(f"{path}: shape {a.shape} or non-finite values")
+            if tag == "" and not float(a.max()) > 0:
+                raise AssertionError("the population map is all zero")
+        return r2
+
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        data = os.path.join(tmp, "data")
         t0 = time.perf_counter()
-        make_synthetic_region(os.path.join(tmp, "data"), "rwa", height=2304, width=2560,
-                              n_regions=(4, 6), seed=42)
+        make_synthetic_region(data, "rwa", height=2304, width=2560, n_regions=(4, 6), seed=42)
         members = []
         for i in range(5):
             params, consts = load_popcorn_from_dda(mcfg, head_seed=100 + i)
@@ -321,35 +464,14 @@ def main() -> None:
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        stats = eval_cli.main([
-            "--data_root", os.path.join(tmp, "data"), "-occmodel", "-senbuilds",
-            "-S2", "-NIR", "-S1", "-treg", "rwa", "-tlevel", "coarse",
-            "--num_workers", "4", "-r", *members,
-        ])
+        stats = eval_cli.main(["--data_root", data, *eval_flags, "-r", *members])
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {"double_conv": A.launches, "up_block": B.launches, "head": C.launches}
         peak = torch.cuda.max_memory_allocated(dev)
-
         if not all(v > 0 for v in launches.values()):
             raise AssertionError(f"a kernel was not launched on the main path: {launches}")
-        bad = {k: v for k, v in stats.items() if not math.isfinite(v)}
-        if bad:
-            raise AssertionError(f"non-finite metrics: {bad}")
-        r2 = stats["Population_AdjCensus_rwa_coarse/r2"]
-        if not r2 > 0.9:
-            raise AssertionError(f"AdjCensus coarse r2 {r2} <= 0.9")
-        folders = glob.glob(os.path.join(tmp, "eval_outputs_ensemble_*"))
-        if len(folders) != 1:
-            raise AssertionError(f"expected one output folder, found {folders}")
-        for tag in ("", "STD", "SCALE_rwa", "SCALE_STD", "ADJ_rwa"):
-            path = os.path.join(folders[0], f"rwa_predictions{tag}.tif")
-            with GeoTIFF(path) as gt:
-                a = gt.read(1, squeeze=True)
-            if a.shape != (2304, 2560) or not bool(np.isfinite(a).all()):
-                raise AssertionError(f"{path}: shape {a.shape} or non-finite values")
-            if tag == "" and not float(a.max()) > 0:
-                raise AssertionError("the population map is all zero")
+        r2 = check_eval(stats, os.path.join(tmp, "eval_outputs_ensemble_*"))
         n_patches = 4  # patch grid of a 2304x2560 region at 2048/128
         emit({
             "phase": "main", "members": 5, "patch": 2048, "overlap": 128,
@@ -359,11 +481,165 @@ def main() -> None:
             "adj_coarse_r2": r2, "main_coarse_r2": stats["Population_MainCensus_rwa_coarse/r2"],
         })
 
+        # ---------------------------------------------------------- 6. train_step
+        from popcorn_tpu_torch.cli import train as train_cli
+        from popcorn_tpu_torch.config import TrainConfig
+        from popcorn_tpu_torch.data.normalize import NormStats
+        from popcorn_tpu_torch.train import state as train_state
+
+        tcfg = TrainConfig()
+        params, consts = load_popcorn_from_dda(mcfg, head_seed=7)
+        rng = np.random.default_rng(7)
+
+        def train_batch(b, h, w):
+            idx = np.arange(1, b + 1, dtype=np.float32)
+            return {
+                "S2": rng.uniform(0, 4000, (b, h, w, 4)).astype(np.float32),
+                "S1": rng.uniform(-25, 0, (b, h, w, 2)).astype(np.float32),
+                "admin_mask": np.where(rng.random((b, h, w)) < 0.7, idx[:, None, None],
+                                       -1.0).astype(np.float32),
+                "census_idx": idx,
+                "y": rng.uniform(10, 1000, (b,)).astype(np.float32),
+                "photometric": np.asarray([1.0, 0.9, 1.0, 1.1], np.float32),
+            }
+
+        small = train_batch(2, 192, 160)
+        mask = torch.from_numpy(rng.random((2, 192, 160)) < 0.5)
+        res = []
+        for where in (torch.device("cpu"), dev):
+            p, cst = to_torch(params, where), to_torch(consts, where)
+            step = train_state.make_train_step(mcfg, tcfg, cst, NormStats(device=where),
+                                               train_state.make_optimizer(tcfg))
+            tb = {k: torch.from_numpy(v).to(where) for k, v in small.items()}
+            grads, aux = step.grads(p, tb, mask=mask.to(where))
+            new_p, _ = step.optimizer.update(grads, step.optimizer.init(p), p)
+            res.append((p, grads, aux, new_p))
+        (p_c, g_c, aux_c, n_c), (p_g, g_g, aux_g, n_g) = res
+        loss_rel = abs(float(aux_g["optimization_loss"]) - float(aux_c["optimization_loss"])) / abs(
+            float(aux_c["optimization_loss"]))
+        pc_rel = float(((aux_g["popcount"].cpu() - aux_c["popcount"]).abs()
+                        / aux_c["popcount"].abs()).max())
+        g_gpu = dict(train_state.tree_flatten(g_g))
+        grad_rel, upd_rel, upd_abs = 0.0, 0.0, 0.0
+        old_c, new_g = dict(train_state.tree_flatten(p_c)), dict(train_state.tree_flatten(n_g))
+        for path, ref in train_state.tree_flatten(g_c):
+            got = g_gpu[path].cpu()
+            name = train_state.keystr(path)
+            if float(ref.norm()) == 0.0:
+                if float(got.norm()) != 0.0:
+                    raise AssertionError(f"train step: {name} is frozen on the CPU, not on the card")
+                continue
+            grad_rel = max(grad_rel, float((got - ref).norm() / ref.norm()))
+        for path, new_ref in train_state.tree_flatten(n_c):
+            du_ref = new_ref - old_c[path]
+            du = new_g[path].cpu() - old_c[path]
+            upd_abs = max(upd_abs, float((du - du_ref).abs().max()))
+            if float(du_ref.norm()) > 0:
+                upd_rel = max(upd_rel, float((du - du_ref).norm() / du_ref.norm()))
+        step_ok = (loss_rel <= STEP_RTOL and pc_rel <= STEP_RTOL
+                   and grad_rel <= STEP_RTOL and upd_rel <= STEP_UPDATE_RTOL
+                   and upd_abs <= 2 * tcfg.learning_rate)
+        emit({"phase": "train_step", "ok": step_ok, "input": [2, 192, 160, 6],
+              "loss_cpu": float(aux_c["optimization_loss"]),
+              "loss_gpu": float(aux_g["optimization_loss"]), "loss_rel_err": loss_rel,
+              "popcount_rel_err": pc_rel, "grad_norm_rel_err_max": grad_rel,
+              "update_norm_rel_err_max": upd_rel, "update_max_abs_err": upd_abs,
+              "rtol": STEP_RTOL, "update_rtol": STEP_UPDATE_RTOL})
+        if not step_ok:
+            raise AssertionError("the train step on the card disagrees with the CPU plain path")
+        del res, p_c, g_c, n_c, p_g, g_g, n_g
+
+        # --------------------------------------------------------------- 7. train
+        step_ms, shapes = [], []
+        orig_call = train_state.TrainStep.__call__
+
+        def timed_call(self, params_, opt_state, batch, *a, **kw):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            out = orig_call(self, params_, opt_state, batch, *a, **kw)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t) * 1e3)
+            shapes.append(list(batch["S2"].shape[:3]))
+            return out
+
+        A.launches = B.launches = C.launches = C.bwd_launches = 0
+        torch.cuda.reset_peak_memory_stats(dev)
+        train_state.TrainStep.__call__ = timed_call
+        t0 = time.perf_counter()
+        try:
+            trainer = train_cli.main([
+                "--data_root", data, "-S2", "-NIR", "-S1", "-treg", "rwa", "-tregtrain", "rwa",
+                "-occmodel", "-senbuilds", "-pret", "-binit", "0.9407", "-tlevel", "coarse",
+                "-e", "1", "-mws", "6", "-lt", "1", "-w", "4",
+                "--save_dir", os.path.join(tmp, "outputs"),
+            ])
+        finally:
+            train_state.TrainStep.__call__ = orig_call
+        torch.cuda.synchronize()
+        train_wall = time.perf_counter() - t0
+        train_launches = {"double_conv": A.launches, "up_block": B.launches,
+                          "head": C.launches, "head_bwd": C.bwd_launches}
+        train_peak = torch.cuda.max_memory_allocated(dev)
+        if not all(v > 0 for v in train_launches.values()):
+            raise AssertionError(f"a kernel was not launched in training: {train_launches}")
+        with open(os.path.join(trainer.experiment_folder, "metrics.jsonl")) as f:
+            recs = [json.loads(line) for line in f]
+        losses = [r["optimization_loss/train"] for r in recs if "optimization_loss/train" in r]
+        if not losses or not all(math.isfinite(v) for v in losses):
+            raise AssertionError(f"train losses {losses}")
+        head0 = load_popcorn_from_dda(mcfg, head_seed=TrainConfig().seed)[0]["head"]
+        moved = max(float((trainer.params["head"][k]["w"].cpu() - head0[k]["w"]).abs().max())
+                    for k in C.HEAD_LAYERS)
+        if not moved > 0:
+            raise AssertionError("the head did not move in training")
+        if math.prod(TRAIN_BUCKET) not in [math.prod(s) for s in shapes]:
+            raise AssertionError(f"train batches {shapes}: none has TRAIN_BUCKET's pixels")
+        ck = os.path.join(trainer.experiment_folder, "last_model.pth")
+        if not os.path.exists(ck):
+            raise AssertionError(f"{ck} was not written")
+        del trainer
+        torch.cuda.empty_cache()
+        tstats = eval_cli.main(["--data_root", data, *eval_flags, "-r", ck, ck])
+        t_r2 = check_eval(tstats, os.path.join(os.path.dirname(ck), "eval_outputs_ensemble_*"))
+
+        # one full-width step at 2x2048^2 (8.4M px: the full-gradient tier)
+        params, consts = load_popcorn_from_dda(mcfg, head_seed=7)
+        step = train_state.make_train_step(mcfg, tcfg, to_torch(consts, dev), NormStats(device=dev),
+                                           train_state.make_optimizer(tcfg))
+        p = to_torch(params, dev)
+        opt_state = step.optimizer.init(p)
+        big = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(2, P, P).items()}
+        gen = torch.Generator().manual_seed(0)
+        step(p, opt_state, big, gen)  # warm-up
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        big_ms = []
+        for _ in range(2):
+            t = time.perf_counter()
+            _, _, aux = step(p, opt_state, big, gen)
+            float(aux["optimization_loss"])
+            torch.cuda.synchronize()
+            big_ms.append((time.perf_counter() - t) * 1e3)
+        emit({
+            "phase": "train", "steps": len(step_ms), "batch_shapes": shapes,
+            "step_ms": step_ms, "median_step_ms": float(np.median(step_ms)),
+            "samples_per_s": 2 * len(step_ms) / (sum(step_ms) / 1e3),
+            "wall_s": train_wall, "peak_mem_bytes": train_peak, "losses": losses,
+            "head_max_move": moved, "launches": train_launches,
+            "ckpt_eval_adj_coarse_r2": t_r2,
+            "full_width_step": {"input": [2, P, P, 6], "ms": big_ms,
+                                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)},
+        })
+        del big, p, opt_state, step
+        torch.cuda.empty_cache()
+
     # ---------------------------------------------------------------- summary
+    launches = {**launches, "head_bwd": train_launches["head_bwd"]}
     meta = {
         "double_conv": ("popcorn_tpu_torch/csrc/double_conv.cu", "popcorn_tpu/nn/pallas_conv.py:101"),
         "up_block": ("popcorn_tpu_torch/csrc/up_block.cu", "popcorn_tpu/nn/pallas_conv.py:472"),
         "head": ("popcorn_tpu_torch/csrc/head.cu", "popcorn_tpu/nn/pallas_packed_head.py:83"),
+        "head_bwd": ("popcorn_tpu_torch/csrc/head_bwd.cu", "popcorn_tpu/nn/pallas_head.py:56"),
     }
     kernels = []
     for kname, (src, replaces) in meta.items():

@@ -252,11 +252,13 @@ def dual_stream_from_tree(params: Tree, bn: Tree, prefix: str = "") -> Dict[str,
 
 
 def save_popcorn_checkpoint(
-    path: str, params: Tree, consts: Tree, epoch: int = 0, iteration: int = 0
+    path: str, params: Tree, consts: Tree, epoch: int = 0, iteration: int = 0,
+    optimizer: Optional[Dict] = None,
 ) -> None:
     """Write (params, consts) as a reference .pth training checkpoint
     ({'model': sd, 'epoch', 'iter'} with unetmodel.*/building_extractor.*/
-    head.* keys, run_train.py:445-456)."""
+    head.* keys, run_train.py:445-456), plus the optimizer state under
+    'optimizer' when given (train/checkpoint.py)."""
     sd = dual_stream_from_tree(params["unet"], consts["unet_bn"], "unetmodel.")
     sd.update(
         dual_stream_from_tree(
@@ -272,4 +274,6 @@ def save_popcorn_checkpoint(
         "epoch": epoch,
         "iter": iteration,
     }
+    if optimizer is not None:
+        ck["optimizer"] = optimizer
     torch.save(ck, path)

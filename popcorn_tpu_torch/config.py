@@ -275,6 +275,8 @@ class ModelConfig:
     feature_extractor: str = "DDA"
     compute_dtype: str = "float32"  # the kernels take float32 only
     quantize: Optional[str] = None  # int8 modes are not ported yet
+    remat_unet: bool = False  # torch.utils.checkpoint the trainable UNet
+    # blocks in training: their activations are recomputed in the backward
 
     @property
     def input_channels(self) -> int:
@@ -287,6 +289,79 @@ class ModelConfig:
         if self.s2:
             ch += 3
         return ch
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Training hyperparameters (reference: arguments/train.py:8-61).
+
+    The fields of the JAX package's TrainConfig, with its defaults. The
+    multi-device and device-resident options are kept so that a config
+    carries across, but the port does not run them yet: ``check()`` raises
+    for them, naming the ROADMAP item that ports them."""
+
+    target_regions: Tuple[str, ...] = ("rwa",)
+    target_regions_train: Tuple[str, ...] = ("rwa",)
+    train_level: Tuple[str, ...] = ("coarse",)
+    weak_batch_size: int = 2
+    weak_val_batch_size: int = 1
+    num_epochs: int = 100
+    learning_rate: float = 1e-4
+    loss: Tuple[str, ...] = ("log_l1_loss",)
+    lam: Tuple[float, ...] = (1.0,)
+    lam_weak: float = 100.0
+    scale_regularization: float = 0.01
+    weight_decay: float = 0.0
+    lr_step: int = 5
+    lr_gamma: float = 0.75
+    gradient_clip: float = 0.01
+    seed: int = 1600
+    limit1: int = 9_000_000  # pixels above which the encoder is frozen
+    limit2: int = 9_000_000  # pixels above which the whole UNet is frozen
+    limit3: int = 13_000_000  # pixels above which the sample is skipped
+    max_weak_samples: Optional[int] = None
+    max_weak_pix: int = 10_000_000
+    max_pix_box: int = 12_000_000
+    weak_validation: bool = False
+    val_every_n_epochs: int = 2
+    val_every_i_steps: int = 500_000  # mid-epoch validation (reference -vi)
+    test_every_i_steps: int = 500_000  # mid-epoch target test (reference -testi)
+    logstep_train: int = 25
+    asc_aug: bool = False
+    fourseasons: bool = True
+    save_dir: str = "outputs"
+    num_workers: int = 6
+    save_model: str = "both"  # 'last' | 'best' | 'no' | 'both'; 'best'
+    # tracks the weak-validation optimization loss
+    skip_first: bool = False  # run epoch 0 but discard its updates
+    max_samples: Optional[int] = None  # cap on weak samples drawn per epoch
+    bucket_ladder: Tuple[int, ...] = (256, 512, 1024, 1536, 2048, 3072, 4096)
+    data_parallel: int = 1  # > 1 not ported: ROADMAP Queue 1 item 16
+    multihost: bool = False  # not ported: ROADMAP Queue 1 item 16
+    val_in_memory: bool = False  # preload validation rasters into host RAM
+    watch_every: int = 0  # >0: log per-layer grad norms + param histograms
+    device_feed: str = "auto"  # "on" not ported: ROADMAP Queue 1 item 13
+    spatial_train: bool = False  # not ported: ROADMAP Queue 1 item 17
+    grad_accum: int = 1  # microbatches per optimizer update
+    transport: str = "exact"  # "bf16" not ported: ROADMAP Queue 1 item 13
+    feed_gate: str = "auto"  # "off" (keep the rotating feed) not ported:
+    # ROADMAP Queue 1 item 13
+
+    def check(self) -> None:
+        """Raise for options whose feature the port does not run yet."""
+        todo = [
+            (self.data_parallel > 1, f"data_parallel={self.data_parallel}", 16),
+            (self.multihost, "multihost", 16),
+            (self.spatial_train, "spatial_train", 17),
+            (self.device_feed == "on", "device_feed='on'", 13),
+            (self.transport != "exact", f"transport={self.transport!r}", 13),
+            (self.feed_gate == "off", "feed_gate='off'", 13),
+        ]
+        for bad, what, item in todo:
+            if bad:
+                raise NotImplementedError(
+                    f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})"
+                )
 
 
 @dataclasses.dataclass

@@ -56,3 +56,28 @@ def normalize_and_assemble(sample: Dict[str, torch.Tensor], stats: NormStats) ->
     if not parts:
         raise ValueError("no modalities to assemble")
     return torch.cat(parts, dim=-1)
+
+
+def photometric_s2_traced(s2: torch.Tensor, params: torch.Tensor) -> torch.Tensor:
+    """S2 brightness + gamma augmentation with the draw as a tensor.
+
+    ``params`` is a length-4 float32 tensor [apply_brightness, beta,
+    apply_gamma, gamma] on the image's device, so a draw needs no host
+    sync. Semantics of aug.augment.apply_photometric_s2 / the reference
+    utils/transform.py:175-276, including the 3-channel gamma->multiply
+    quirk (aug/augment.py) and torchvision's [0, 1] clamps."""
+    s2max = 10000.0
+    apply_b = params[0] > 0.5
+    beta = params[1]
+    apply_g = params[2] > 0.5
+    gamma = params[3]
+
+    xb = torch.clamp(s2 / s2max * beta, 0.0, 1.0) * s2max
+    x = torch.where(apply_b, xb, s2)
+
+    x01 = torch.clamp(x, min=0.0) / s2max
+    if s2.shape[-1] == 3:
+        xg = torch.clamp(x01 * gamma, 0.0, 1.0) * s2max
+    else:
+        xg = torch.clamp(x01**gamma, 0.0, 1.0) * s2max
+    return torch.where(apply_g, xg, x)

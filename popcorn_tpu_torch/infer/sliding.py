@@ -25,7 +25,7 @@ from ..config import ModelConfig
 from ..data.dataset import PopulationDataset
 from ..data.feed import InferenceFeed
 from ..data.normalize import NormStats, normalize_and_assemble
-from ..nn.popcorn import check_config, create_building_score, popcorn_forward
+from ..nn.popcorn import check_config, create_building_score, popcorn_predict
 
 Tree = Dict[str, Any]
 
@@ -82,7 +82,7 @@ def make_patch_forward(mcfg: ModelConfig, consts: Tree, stats: NormStats, n_memb
         ds, dsq, ss, ssq = (zeros.clone() for _ in range(4))
         inputs = {"input": x, "building_counts": score}
         for params in member_params:
-            out = popcorn_forward(params, consts, inputs, mcfg_member, padding=False)
+            out = popcorn_predict(params, consts, inputs, mcfg_member, padding=False)
             dense = out["popdensemap"].float()
             scale = out["scale"]
             scale = torch.zeros_like(dense) if scale is None else scale.float()
@@ -151,14 +151,18 @@ class StitchAccumulators:
         return out
 
 
-def _upload(batch: Dict[str, np.ndarray], device: torch.device) -> Dict[str, torch.Tensor]:
-    """Host batch -> device tensors (pinned and asynchronous on CUDA).
+def _upload(
+    batch: Dict[str, np.ndarray], device: torch.device,
+    keys: Sequence[str] = ("S2", "S1", "VIIRS", "building_counts", "mask", "valid"),
+) -> Dict[str, torch.Tensor]:
+    """Host batch -> device tensors of ``keys`` (pinned and asynchronous
+    on CUDA).
 
     uint16 arrays (lossless S2) travel as their 2 bytes, reinterpreted as
     int16, and widen to int32 on the device: torch's uint16 support is
     partial on CUDA."""
     out = {}
-    for k in ("S2", "S1", "VIIRS", "building_counts", "mask", "valid"):
+    for k in keys:
         if k not in batch:
             continue
         a = np.ascontiguousarray(batch[k])

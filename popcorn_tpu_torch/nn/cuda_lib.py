@@ -27,7 +27,7 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-KERNEL_SOURCES = ("double_conv", "up_block", "head")
+KERNEL_SOURCES = ("double_conv", "up_block", "head", "head_bwd")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -146,9 +146,19 @@ def ptr(t: torch.Tensor) -> ctypes.c_void_p:
 
 def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     """Raise unless every tensor is a contiguous float32 CUDA tensor on the
-    first one's device."""
+    first one's device. Also raise for a tensor that requires a gradient
+    while grad mode is on: a kernel launched through ctypes returns a
+    tensor with no ``grad_fn``, so it would cut the gradient to zero
+    silently. Blocks that train run their plain composition instead, and
+    frozen ones run under ``torch.no_grad()`` (nn/unet.py)."""
     dev = tensors[0].device
+    grad_mode = torch.is_grad_enabled()
     for i, t in enumerate(tensors):
+        if grad_mode and t.requires_grad:
+            raise RuntimeError(
+                f"{name}: argument {i} requires a gradient; the kernel has no "
+                "backward here (run a frozen block under torch.no_grad())"
+            )
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: argument {i} is on {t.device}, expected {dev}")
         if t.dtype != torch.float32:

@@ -1,20 +1,26 @@
-"""Kernel C: the fused POPCORN head (csrc/head.cu).
+"""Kernels C and D: the fused POPCORN head (csrc/head.cu) and its
+backward (csrc/head_bwd.cu).
 
 The head is a per-pixel MLP 16 -> 64 -> 64 -> 64 -> 2 with ReLUs
-(model/popcorn.py:80-85). Counterpart of popcorn_tpu/nn/pallas_head.py::
-fused_head (``n_out=2``) and of popcorn_tpu/nn/pallas_packed_head.py::
-fused_packed_head (``n_out=1``: channel 0 only, which is all the member
-fold uses; the packed kernels are TPU lane layouts of that same function).
+(model/popcorn.py:80-85). Kernel C is the counterpart of
+popcorn_tpu/nn/pallas_head.py::fused_head (``n_out=2``) and of
+popcorn_tpu/nn/pallas_packed_head.py::fused_packed_head (``n_out=1``:
+channel 0 only, which is all the member fold uses; the packed kernels are
+TPU lane layouts of that same function). Kernel D is the backward of
+fused_head's custom VJP (pallas_head.py::_bwd_kernel), and ``head_train``
+is the ``torch.autograd.Function`` that pairs the two, as ``_head_flat``
+does: its forward is kernel C with two channels and saves only the input
+and the weights; its backward recomputes the activations in kernel D.
 
-``head_apply`` takes the plain version for a tensor on the CPU and
-launches the CUDA kernel for a tensor on the card; there is no fallback
-between the two. Forward only: the head's backward belongs to training.
+Each wrapper takes the plain version for a tensor on the CPU and launches
+its CUDA kernel for a tensor on the card; there is no fallback between
+the two.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Any, Dict
+from typing import Any, Dict, List, Optional, Tuple
 
 import torch
 
@@ -77,3 +83,107 @@ def head_apply(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
     if feats.device.type == "cpu":
         return head_plain(p, feats, n_out)
     return head_cuda(p, feats, n_out)
+
+
+# -- backward: kernel D -------------------------------------------------------
+
+# launches of kernel D, counted where its wrapper launches it
+bwd_launches = 0
+
+
+def _weights(p: Tree) -> List[torch.Tensor]:
+    return [p[name][k] for name in HEAD_LAYERS for k in ("w", "b")]
+
+
+def _tree(wts) -> Tree:
+    return {name: {"w": wts[2 * i], "b": wts[2 * i + 1]} for i, name in enumerate(HEAD_LAYERS)}
+
+
+def head_bwd_plain(
+    p: Tree, feats: torch.Tensor, g: torch.Tensor
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """The head's backward in plain PyTorch: autograd through head_plain
+    (two channels) for the cotangent ``g`` (..., 2). Returns dx and the
+    gradients of [w1, b1, ..., w4, b4]."""
+    with torch.enable_grad():
+        x = feats.detach().requires_grad_(True)
+        wts = [w.detach().requires_grad_(True) for w in _weights(p)]
+        out = head_plain(_tree(wts), x, 2)
+        grads = torch.autograd.grad(out, [x, *wts], g)
+    return grads[0], list(grads[1:])
+
+
+def head_bwd_cuda(
+    p: Tree, feats: torch.Tensor, g: torch.Tensor, need_dx: bool = True
+) -> Tuple[Optional[torch.Tensor], List[torch.Tensor]]:
+    """Launch kernel D on contiguous float32 CUDA tensors: features
+    (..., 16) and cotangent (..., 2). Returns dx (None unless ``need_dx``)
+    and the gradients of [w1, b1, ..., w4, b4], summed over all pixels."""
+    global bwd_launches
+    wts = _weights(p)
+    shapes = [s for ci, co in zip(DIMS[:-1], DIMS[1:]) for s in ((ci, co), (co,))]
+    for w, s in zip(wts, shapes):
+        if tuple(w.shape) != s:
+            raise ValueError(f"head_bwd: a weight is {tuple(w.shape)}, expected {s}")
+    cuda_lib.require_cuda_f32("head_bwd", feats, g, *wts)
+    if feats.shape[-1] != DIMS[0] or g.shape != (*feats.shape[:-1], DIMS[-1]):
+        raise ValueError(
+            f"head_bwd: features {tuple(feats.shape)} and cotangent {tuple(g.shape)} "
+            f"do not fit a {DIMS[0]} -> {DIMS[-1]} head"
+        )
+    n = feats.numel() // DIMS[0]
+    dev = feats.device
+    dx = torch.empty_like(feats) if need_dx else None
+    if n == 0:
+        return dx, [torch.zeros_like(w) for w in wts]
+    npart, nblocks = ctypes.c_int(), ctypes.c_int()
+    cuda_lib.function(
+        "head_bwd", "popcorn_head_bwd_sizes",
+        [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
+    )(n, ctypes.byref(npart), ctypes.byref(nblocks))
+    part = torch.empty((nblocks.value, npart.value), device=dev, dtype=torch.float32)
+    flat = torch.empty((npart.value,), device=dev, dtype=torch.float32)
+    fn = cuda_lib.function(
+        "head_bwd", "popcorn_head_bwd_f32",
+        [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
+    )
+    P = cuda_lib.ptr
+    rc = fn(
+        P(feats), P(g), *(P(w) for w in wts[:-1]),
+        P(dx) if need_dx else ctypes.c_void_p(None), P(part), P(flat),
+        n, nblocks.value, cuda_lib.stream_ptr(dev),
+    )
+    cuda_lib.check(rc, "head_bwd")
+    bwd_launches += 1
+    grads, off = [], 0
+    for w in wts:  # the flat order is [dW1 db1 dW2 db2 dW3 db3 dW4 db4]
+        grads.append(flat[off : off + w.numel()].view(w.shape))
+        off += w.numel()
+    return dx, grads
+
+
+class _HeadTrain(torch.autograd.Function):
+    """Two-channel head with a recomputing backward (the ``_head_flat``
+    custom VJP): kernels C and D on CUDA, plain versions on the CPU."""
+
+    @staticmethod
+    def forward(ctx, feats, *wts):
+        ctx.save_for_backward(feats, *wts)
+        return head_apply(_tree(wts), feats, n_out=2)
+
+    @staticmethod
+    def backward(ctx, g):
+        feats, *wts = ctx.saved_tensors
+        need_dx = ctx.needs_input_grad[0]
+        g = g.contiguous()
+        if feats.device.type == "cpu":
+            dx, grads = head_bwd_plain(_tree(wts), feats, g)
+        else:
+            dx, grads = head_bwd_cuda(_tree(wts), feats, g, need_dx)
+        return (dx if need_dx else None, *grads)
+
+
+def head_train(p: Tree, feats: torch.Tensor) -> torch.Tensor:
+    """(..., 16) features -> (..., 2), differentiable in the features and
+    every head parameter; the training head (nn/popcorn.py)."""
+    return _HeadTrain.apply(feats.contiguous(), *_weights(p))

@@ -9,6 +9,7 @@ nn/up_block.py) use them on the CPU and launch CUDA kernels on the card.
 
 from __future__ import annotations
 
+import contextlib
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -74,6 +75,20 @@ def pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
     """Reflect-pad H and W by p pixels on each side (torch 'reflect')."""
     return to_nhwc(F.pad(to_nchw(x), (p, p, p, p), mode="reflect"))
+
+
+@contextlib.contextmanager
+def float32_exact():
+    """Full float32 for cuDNN convolutions and cuBLAS matmuls inside the
+    block (TF32 off), whatever the process-wide settings are; they are
+    restored on exit. The training step runs under it so that its
+    gradients do not depend on a global set elsewhere."""
+    cudnn, mm = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = cudnn, mm
 
 
 PadSpec = Tuple[Optional[int], Optional[int], Optional[int], Optional[int]]

@@ -1,25 +1,27 @@
-"""The POPCORN population-mapping model, eval path.
+"""The POPCORN population-mapping model.
 
 Counterpart of popcorn_tpu/nn/popcorn.py (reference model/popcorn.py):
 
   popdensemap = relu(head(unet(x))[..., 0]) * building_score  (occupancy)
   popcount    = sum over the admin region
 
-with a frozen dual-stream UNet feature extractor, a second frozen
-dual-stream UNet as on-the-fly building extractor, and the 4-layer 1x1
-head. The port has one engine, plain NHWC: the JAX package's packed and
-wide engines (nn/packed.py, nn/wide.py) are TPU lane layouts of the same
-math. Training (sparse masks, gradients) is not ported yet.
+with a dual-stream UNet feature extractor (trainable in training), a
+second frozen dual-stream UNet as on-the-fly building extractor, and the
+4-layer 1x1 head. The port has one engine, plain NHWC: the JAX package's
+packed and wide engines (nn/packed.py, nn/wide.py) are TPU lane layouts
+of the same math. As in the JAX package, the sparsity mask of training
+only restricts the scale regulariser: the head runs densely, and every
+pixel that can add to popcount lies in the mask.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from ..config import ModelConfig
-from .head import head_apply
+from .head import head_apply, head_train
 from .ops import add_padding, revert_padding
 from .unet import building_logits, dual_stream_features
 
@@ -72,7 +74,52 @@ def create_building_score(
     return revert_padding(score, pad)[..., 0]
 
 
+def sparsity_mask(
+    generator: torch.Generator,
+    building_counts: Optional[torch.Tensor],
+    admin_mask: torch.Tensor,
+    census_idx: torch.Tensor,
+    *,
+    occupancy: bool,
+) -> torch.Tensor:
+    """The training sparsity mask (model/popcorn.py:361-377;
+    popcorn_tpu/nn/popcorn.py::sparsity_mask).
+
+    mask = (buildings > 0 [if occupancy]) AND (admin == census_idx), plus a
+    random 60x60 row/column lattice (one draw shared across the batch, as
+    in the reference) clipped to the admin region, falling back to the
+    whole admin region when the batch's mask is empty. The lattice rows
+    and columns are ``torch.randperm(n, generator=generator)[:60]``, drawn
+    on the generator's device (the trainer's is on the CPU) and moved to
+    the mask's; JAX's draw cannot be matched bit for bit, so tests inject
+    its mask through ``popcorn_forward(mask=...)``."""
+    admin_sel = admin_mask == census_idx[:, None, None]
+    if building_counts is not None and building_counts.dim() == 4:
+        building_counts = building_counts[..., 0]
+    m = (building_counts > 0) & admin_sel if occupancy else admin_sel
+    _, h, w = m.shape
+    gdev = generator.device
+    xi = torch.randperm(h, generator=generator, device=gdev)[: min(60, h)]
+    yi = torch.randperm(w, generator=generator, device=gdev)[: min(60, w)]
+    rows = torch.zeros(h, dtype=torch.bool, device=gdev)
+    cols = torch.zeros(w, dtype=torch.bool, device=gdev)
+    rows[xi] = True
+    cols[yi] = True
+    lattice = (rows[:, None] & cols[None, :]).to(m.device)
+    m = (m | lattice[None]) & admin_sel
+    return torch.where(m.any(), m, admin_sel)
+
+
 @torch.no_grad()
+def popcorn_predict(
+    params: Tree, consts: Tree, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
+    *, padding: bool = True,
+) -> Dict[str, Any]:
+    """The eval forward without autograd: every UNet block and the
+    channel-0 head through their kernels on the card."""
+    return popcorn_forward(params, consts, inputs, cfg, padding=padding)
+
+
 def popcorn_forward(
     params: Tree,
     consts: Tree,
@@ -81,9 +128,13 @@ def popcorn_forward(
     *,
     train: bool = False,
     padding: bool = True,
+    encoder_no_grad: bool = False,
+    unet_no_grad: bool = False,
     sparse: bool = False,
+    generator: Optional[torch.Generator] = None,
+    mask: Optional[torch.Tensor] = None,
 ) -> Dict[str, Any]:
-    """Full POPCORN forward pass, eval semantics (model/popcorn.py:100-193).
+    """Full POPCORN forward pass (model/popcorn.py:100-193).
 
     params: {'unet': dual-stream tree, 'head': {'l1'..'l4': {w,b}}}
     consts: {'unet_bn': BN constants, 'builder': {'params','bn'}}
@@ -91,11 +142,20 @@ def popcorn_forward(
              optional 'building_counts': (B,H,W) or (B,H,W,1),
              optional 'admin_mask': (B,H,W), 'census_idx': (B,)}
 
+    ``train`` differentiates the UNet blocks (except those frozen by the
+    memory tiers ``encoder_no_grad`` / ``unet_no_grad``, which run their
+    kernels without a gradient, nn/unet.py) and the head, whose training
+    forward is kernel C with two channels and whose backward is kernel D
+    (nn/head.py::head_train). Without ``train`` the whole model runs its
+    kernels and the head emits channel 0 only: call it under no_grad
+    (``popcorn_predict``), as the kernels refuse tensors that need a
+    gradient. ``sparse`` draws the sparsity mask from ``generator``
+    unless a precomputed ``mask`` (B,H,W) bool is given.
+
     Returns {'popcount': (B,), 'popdensemap': (B,H,W), 'scale': (B,H,W)
-    or None, 'scale_abs_mean': mean |scale| or None, 'building_counts'}.
+    or None, 'scale_abs_mean': mean |scale| (over the mask when sparse) or
+    None, 'building_counts', and 'sparsity_mask' when sparse}.
     """
-    if train or sparse:
-        raise NotImplementedError("the port runs the eval forward only (train/sparse not ported yet)")
     check_config(cfg)
     x = inputs["input"]
     if "building_counts" not in inputs or cfg.sentinel_buildings:
@@ -107,11 +167,29 @@ def popcorn_forward(
         if building_counts.dim() == 4:
             building_counts = building_counts[..., 0]
 
+    if sparse and mask is None:
+        if generator is None:
+            raise ValueError("sparse=True requires a generator or a precomputed mask")
+        mask = sparsity_mask(
+            generator, building_counts, inputs["admin_mask"], inputs["census_idx"],
+            occupancy=cfg.occupancy_model,
+        )
+    if not sparse:
+        mask = None
+
     xp, pad = add_padding(x, force=padding)
     x6 = reorder_to_dda(xp, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir)
-    feats = dual_stream_features(params["unet"], consts["unet_bn"], x6, s1=cfg.s1, s2=cfg.s2)
+    trainable = train and not unet_no_grad
+    feats = dual_stream_features(
+        params["unet"], consts["unet_bn"], x6, s1=cfg.s1, s2=cfg.s2,
+        train=trainable, encoder_stop_grad=encoder_no_grad,
+        remat=cfg.remat_unet and trainable,
+    )
     feats = revert_padding(feats, pad).contiguous()
-    out = head_apply(params["head"], feats, n_out=1)[..., 0].float()
+    if train:
+        out = head_train(params["head"], feats)[..., 0]
+    else:
+        out = head_apply(params["head"], feats, n_out=1)[..., 0].float()
 
     if cfg.occupancy_model:
         scale = torch.relu(out)
@@ -125,10 +203,21 @@ def popcorn_forward(
         popcount = torch.sum(popdensemap * sel, dim=(1, 2))
     else:
         popcount = torch.sum(popdensemap, dim=(1, 2))
-    return {
+    if scale is None:
+        scale_abs_mean = None
+    elif mask is not None:
+        # |scale| mean over the sparsity mask: the reference's mean over
+        # scale[sparsity_mask]
+        scale_abs_mean = torch.sum(torch.abs(scale) * mask) / torch.clamp(torch.sum(mask), min=1)
+    else:
+        scale_abs_mean = torch.mean(torch.abs(scale))
+    result = {
         "popcount": popcount,
         "popdensemap": popdensemap,
         "scale": scale,
-        "scale_abs_mean": None if scale is None else torch.mean(torch.abs(scale)),
+        "scale_abs_mean": scale_abs_mean,
         "building_counts": building_counts,
     }
+    if mask is not None:
+        result["sparsity_mask"] = mask
+    return result
