@@ -18,13 +18,19 @@ Phases, each printing one JSON line:
                the launch counts of kernels A, B, C must rise during it;
   6. train_step — one training step (the repo's DDA weights, a seeded
                head, 2x192x160, a fixed sparsity mask) on the card against
-               the CPU plain path: loss, every gradient leaf, the update;
+               the CPU plain path in each memory tier (full gradient,
+               encoder_no_grad, unet_no_grad): loss, every gradient leaf,
+               frozen leaves exactly zero, the update, and launches of
+               kernels A-D on the card;
   7. train   — the train CLI on the same region with the verify skill's
                flags (1 epoch, 6 weak samples): finite losses, moved head,
                launches of A, B, C and D, last_model.pth, which the eval
-               CLI then turns into finite maps with AdjCensus r2 > 0.9;
-               plus one full-width step at 2x2048^2 for its time and
-               memory.
+               CLI then turns into finite maps with AdjCensus r2 > 0.9.
+               Then steady step times: the epoch's batches again through
+               the trainer's step, each shape warmed once, and one
+               full-width step at 2x2048^2, with its memory; a
+               torch.profiler trace of each (train_profile lines) splits
+               the step by kernel and gives the device's idle share.
 Kernel D (the head backward) is checked in phase 3 at the train phase's
 bucket shape (2x1024x1024) and at 2x2048^2. Then the {"kernels": [...]}
 summary, the nvidia-smi name/power line, and last {"ok": true, "device":
@@ -73,19 +79,23 @@ NORM_RTOL = 1e-5
 # and on all pixels, norm-relative at RAW_NORM_RTOL.
 BOUNDARY = 1e-4
 RAW_NORM_RTOL = 3e-3
-# the train step on the card against the CPU plain path: float32 through
-# cuDNN (TF32 off) vs the CPU's convs, two UNets and their backward; loss
-# and popcount at rtol 1e-4, each gradient leaf norm-relative 1e-4. The
-# update Adam makes of it is lr * g / (|g| + eps), which turns a float32
-# difference of a gradient near zero into up to the whole step: updates
-# are held norm-relative 1e-2 (2.7e-3 seen on an H100, gradients 6.2e-5)
-# and elementwise within 2 * lr.
+# the train step on the card against the CPU plain path, in each memory
+# tier: float32 through cuDNN (TF32 off) vs the CPU's convs, two UNets and
+# their backward; loss and popcount at rtol 1e-4, each gradient leaf
+# norm-relative 1e-4, frozen leaves exactly zero. The update Adam makes of
+# it is lr * g / (|g| + eps), which turns a float32 difference of a
+# gradient near zero into up to the whole step: updates are held
+# norm-relative 1e-2 (2.7e-3 seen on an H100, gradients 6.2e-5): a leaf
+# whose gradient has the wrong sign moves by twice its step and fails it.
 STEP_RTOL, STEP_UPDATE_RTOL = 1e-4, 1e-2
 KERNEL_REPS = 10
 # the train phase's larger batch: its 6 weak samples of the seeded
 # 2304x2560 region's 4x6 admin grid come in the buckets 2x1024x1024 and
 # 2x512x256 (the train phase checks that this one is among them)
 TRAIN_BUCKET = (2, 1024, 1024)
+# steady train-step timing: each bucket shape is run once untimed (cuDNN
+# plan selection, allocator growth), then STEP_REPS times
+STEP_REPS = 5
 
 
 def emit(obj) -> None:
@@ -120,6 +130,44 @@ def time_ms(fn, reps: int = KERNEL_REPS) -> float:
 def bound(flops: float, nbytes: float):
     t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def profile_steps(case: str, run, step_ms: float, reps: int = 3) -> dict:
+    """One torch.profiler trace over ``reps`` calls of the warmed ``run``:
+    the device's busy time a call (the sum of its kernels and copies, which
+    run on one stream), its idle share of the steady ``step_ms``, kernel
+    launches a call, and the kernels and host ops that take the most time.
+    A trace with no device events gives nulls, not a failure: it measures,
+    it checks nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def dev_us(e):
+        return e.self_device_time_total if hasattr(e, "self_device_time_total") else e.self_cuda_time_total
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+    traced_ms = (time.perf_counter() - t) * 1e3 / reps
+    events = prof.key_averages()
+    kern = sorted((e for e in events if e.device_type == DeviceType.CUDA), key=dev_us, reverse=True)
+    host = sorted((e for e in events if e.device_type == DeviceType.CPU),
+                  key=lambda e: e.self_cpu_time_total, reverse=True)
+    busy = sum(dev_us(e) for e in kern) / 1e3 / reps if kern else None
+    return {
+        "phase": "train_profile", "case": case, "reps": reps, "step_ms": step_ms,
+        "traced_ms": traced_ms, "device_busy_ms": busy,
+        "idle_share": None if busy is None else 1.0 - busy / step_ms,
+        "kernel_launches": sum(e.count for e in kern) / reps,
+        "top_kernels": [{"name": e.key[:100], "ms": dev_us(e) / 1e3 / reps, "calls": e.count / reps}
+                        for e in kern[:15]],
+        "top_host_ops": [{"name": e.key[:60], "self_ms": e.self_cpu_time_total / 1e3 / reps,
+                          "calls": e.count / reps} for e in host[:15]],
+    }
 
 
 def compare(got, ref, name: str):
@@ -505,76 +553,88 @@ def main() -> None:
 
         small = train_batch(2, 192, 160)
         mask = torch.from_numpy(rng.random((2, 192, 160)) < 0.5)
-        res = []
+        # the memory tiers: which UNet leaves each one freezes (the streams'
+        # unused output convs never take a gradient in this configuration)
+        tiers = {
+            "full": dict(encoder_no_grad=False, unet_no_grad=False),
+            "encoder_no_grad": dict(encoder_no_grad=True, unet_no_grad=False),
+            "unet_no_grad": dict(encoder_no_grad=True, unet_no_grad=True),
+        }
+
+        def frozen(path, flags):
+            return path[0] == "unet" and (
+                flags["unet_no_grad"] or path[1] in ("sar_out", "opt_out", "fusion_out")
+                or (flags["encoder_no_grad"] and len(path) > 2
+                    and path[2] in ("inc", "down1", "down2")))
+
+        steps = {}
         for where in (torch.device("cpu"), dev):
             p, cst = to_torch(params, where), to_torch(consts, where)
-            step = train_state.make_train_step(mcfg, tcfg, cst, NormStats(device=where),
-                                               train_state.make_optimizer(tcfg))
-            tb = {k: torch.from_numpy(v).to(where) for k, v in small.items()}
-            grads, aux = step.grads(p, tb, mask=mask.to(where))
-            new_p, _ = step.optimizer.update(grads, step.optimizer.init(p), p)
-            res.append((p, grads, aux, new_p))
-        (p_c, g_c, aux_c, n_c), (p_g, g_g, aux_g, n_g) = res
-        loss_rel = abs(float(aux_g["optimization_loss"]) - float(aux_c["optimization_loss"])) / abs(
-            float(aux_c["optimization_loss"]))
-        pc_rel = float(((aux_g["popcount"].cpu() - aux_c["popcount"]).abs()
-                        / aux_c["popcount"].abs()).max())
-        g_gpu = dict(train_state.tree_flatten(g_g))
-        grad_rel, upd_rel, upd_abs = 0.0, 0.0, 0.0
-        old_c, new_g = dict(train_state.tree_flatten(p_c)), dict(train_state.tree_flatten(n_g))
-        for path, ref in train_state.tree_flatten(g_c):
-            got = g_gpu[path].cpu()
-            name = train_state.keystr(path)
-            if float(ref.norm()) == 0.0:
-                if float(got.norm()) != 0.0:
-                    raise AssertionError(f"train step: {name} is frozen on the CPU, not on the card")
-                continue
-            grad_rel = max(grad_rel, float((got - ref).norm() / ref.norm()))
-        for path, new_ref in train_state.tree_flatten(n_c):
-            du_ref = new_ref - old_c[path]
-            du = new_g[path].cpu() - old_c[path]
-            upd_abs = max(upd_abs, float((du - du_ref).abs().max()))
-            if float(du_ref.norm()) > 0:
-                upd_rel = max(upd_rel, float((du - du_ref).norm() / du_ref.norm()))
-        step_ok = (loss_rel <= STEP_RTOL and pc_rel <= STEP_RTOL
-                   and grad_rel <= STEP_RTOL and upd_rel <= STEP_UPDATE_RTOL
-                   and upd_abs <= 2 * tcfg.learning_rate)
-        emit({"phase": "train_step", "ok": step_ok, "input": [2, 192, 160, 6],
-              "loss_cpu": float(aux_c["optimization_loss"]),
-              "loss_gpu": float(aux_g["optimization_loss"]), "loss_rel_err": loss_rel,
-              "popcount_rel_err": pc_rel, "grad_norm_rel_err_max": grad_rel,
-              "update_norm_rel_err_max": upd_rel, "update_max_abs_err": upd_abs,
-              "rtol": STEP_RTOL, "update_rtol": STEP_UPDATE_RTOL})
-        if not step_ok:
-            raise AssertionError("the train step on the card disagrees with the CPU plain path")
-        del res, p_c, g_c, n_c, p_g, g_g, n_g
+            steps[where.type] = (p, train_state.make_train_step(
+                mcfg, tcfg, cst, NormStats(device=where), train_state.make_optimizer(tcfg)))
+        old_c = dict(train_state.tree_flatten(steps["cpu"][0]))
+        for tier, flags in tiers.items():
+            res = {}
+            for where in (torch.device("cpu"), dev):
+                p, step = steps[where.type]
+                tb = {k: torch.from_numpy(v).to(where) for k, v in small.items()}
+                before = (A.launches, B.launches, C.launches, C.bwd_launches)
+                grads, aux = step.grads(p, tb, mask=mask.to(where), **flags)
+                new_p, _ = step.optimizer.update(grads, step.optimizer.init(p), p)
+                after = (A.launches, B.launches, C.launches, C.bwd_launches)
+                res[where.type] = (grads, aux, new_p, [a - b for a, b in zip(after, before)])
+            (g_c, aux_c, n_c, _), (g_g, aux_g, n_g, tier_launches) = res["cpu"], res["cuda"]
+            loss_rel = abs(float(aux_g["optimization_loss"]) - float(aux_c["optimization_loss"])) / abs(
+                float(aux_c["optimization_loss"]))
+            pc_rel = float(((aux_g["popcount"].cpu() - aux_c["popcount"]).abs()
+                            / aux_c["popcount"].abs()).max())
+            g_gpu = dict(train_state.tree_flatten(g_g))
+            grad_rel, upd_rel, n_frozen = 0.0, 0.0, 0
+            for path, ref in train_state.tree_flatten(g_c):
+                got = g_gpu[path].cpu()
+                name = train_state.keystr(path)
+                if frozen(path, flags):
+                    # a frozen leaf: an exact zero in both, not a small value
+                    if bool(ref.any()) or bool(got.any()):
+                        raise AssertionError(f"train step {tier}: {name} is frozen but has a gradient")
+                    n_frozen += 1
+                    continue
+                if not float(ref.norm()) > 0:
+                    raise AssertionError(f"train step {tier}: trainable {name} has no gradient")
+                grad_rel = max(grad_rel, float((got - ref).norm() / ref.norm()))
+            new_g = dict(train_state.tree_flatten(n_g))
+            for path, new_ref in train_state.tree_flatten(n_c):
+                du_ref = new_ref - old_c[path]
+                du = new_g[path].cpu() - old_c[path]
+                if float(du_ref.norm()) > 0:
+                    upd_rel = max(upd_rel, float((du - du_ref).norm() / du_ref.norm()))
+            # on the card every tier runs the head through kernels C and D,
+            # and the builder (and the frozen blocks) through kernels A and B
+            launched = dict(zip(("double_conv", "up_block", "head", "head_bwd"), tier_launches))
+            step_ok = (loss_rel <= STEP_RTOL and pc_rel <= STEP_RTOL
+                       and grad_rel <= STEP_RTOL and upd_rel <= STEP_UPDATE_RTOL
+                       and all(v > 0 for v in launched.values()))
+            emit({"phase": "train_step", "tier": tier, "ok": step_ok, "input": [2, 192, 160, 6],
+                  "loss_cpu": float(aux_c["optimization_loss"]),
+                  "loss_gpu": float(aux_g["optimization_loss"]), "loss_rel_err": loss_rel,
+                  "popcount_rel_err": pc_rel, "grad_norm_rel_err_max": grad_rel,
+                  "frozen_leaves": n_frozen, "update_norm_rel_err_max": upd_rel,
+                  "card_launches": launched, "rtol": STEP_RTOL, "update_rtol": STEP_UPDATE_RTOL})
+            if not step_ok:
+                raise AssertionError(f"the {tier} train step on the card disagrees with the CPU plain path")
+            del res, g_c, n_c, g_g, n_g
+        del steps
 
         # --------------------------------------------------------------- 7. train
-        step_ms, shapes = [], []
-        orig_call = train_state.TrainStep.__call__
-
-        def timed_call(self, params_, opt_state, batch, *a, **kw):
-            torch.cuda.synchronize()
-            t = time.perf_counter()
-            out = orig_call(self, params_, opt_state, batch, *a, **kw)
-            torch.cuda.synchronize()
-            step_ms.append((time.perf_counter() - t) * 1e3)
-            shapes.append(list(batch["S2"].shape[:3]))
-            return out
-
         A.launches = B.launches = C.launches = C.bwd_launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
-        train_state.TrainStep.__call__ = timed_call
         t0 = time.perf_counter()
-        try:
-            trainer = train_cli.main([
-                "--data_root", data, "-S2", "-NIR", "-S1", "-treg", "rwa", "-tregtrain", "rwa",
-                "-occmodel", "-senbuilds", "-pret", "-binit", "0.9407", "-tlevel", "coarse",
-                "-e", "1", "-mws", "6", "-lt", "1", "-w", "4",
-                "--save_dir", os.path.join(tmp, "outputs"),
-            ])
-        finally:
-            train_state.TrainStep.__call__ = orig_call
+        trainer = train_cli.main([
+            "--data_root", data, "-S2", "-NIR", "-S1", "-treg", "rwa", "-tregtrain", "rwa",
+            "-occmodel", "-senbuilds", "-pret", "-binit", "0.9407", "-tlevel", "coarse",
+            "-e", "1", "-mws", "6", "-lt", "1", "-w", "4",
+            "--save_dir", os.path.join(tmp, "outputs"),
+        ])
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
         train_launches = {"double_conv": A.launches, "up_block": B.launches,
@@ -592,12 +652,57 @@ def main() -> None:
                     for k in C.HEAD_LAYERS)
         if not moved > 0:
             raise AssertionError("the head did not move in training")
-        if math.prod(TRAIN_BUCKET) not in [math.prod(s) for s in shapes]:
-            raise AssertionError(f"train batches {shapes}: none has TRAIN_BUCKET's pixels")
         ck = os.path.join(trainer.experiment_folder, "last_model.pth")
         if not os.path.exists(ck):
             raise AssertionError(f"{ck} was not written")
-        del trainer
+
+        # steady step times on the epoch's own batches: the feed is seeded,
+        # so epoch 0 yields them again; a plain loop over the trainer's
+        # step, each bucket shape run once untimed, then STEP_REPS times
+        from popcorn_tpu_torch.infer.sliding import _upload
+        from popcorn_tpu_torch.train.trainer import TRAIN_KEYS
+
+        epoch = [(b, trainer._tier_flags(b)) for b in trainer.feed.epoch(0)]
+        epoch = [(b, f) for b, f in epoch if f is not None]
+        shapes = [tuple(b["S2"].shape[:3]) for b, _ in epoch]
+        if len(shapes) != len(losses):
+            raise AssertionError(f"the replayed epoch has {len(shapes)} batches, "
+                                 f"the run logged {len(losses)} steps")
+        if math.prod(TRAIN_BUCKET) not in [math.prod(s) for s in shapes]:
+            raise AssertionError(f"train batches {shapes}: none has TRAIN_BUCKET's pixels")
+
+        def time_step(run):
+            run()  # untimed first call at this shape
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            ms = []
+            for _ in range(STEP_REPS):
+                t = time.perf_counter()
+                run()
+                torch.cuda.synchronize()
+                ms.append((time.perf_counter() - t) * 1e3)
+            return {"step_ms": ms, "median_ms": float(np.median(ms)),
+                    "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)}
+
+        def trainer_step(dev_batch, flags):
+            def run():
+                _, _, aux = trainer.step_fn(trainer.params, trainer.opt_state, dev_batch,
+                                            trainer.generator, **flags)
+                float(aux["optimization_loss"])  # the trainer reads the loss every step
+            return run
+
+        buckets, profiles = {}, []
+        for b, flags in epoch:
+            shape = tuple(b["S2"].shape[:3])
+            if shape in buckets:
+                continue
+            run = trainer_step(_upload(b, dev, TRAIN_KEYS), flags)
+            buckets[shape] = {"shape": list(shape), **flags, **time_step(run)}
+            profiles.append(profile_steps(f"train bucket {list(shape)}", run,
+                                          buckets[shape]["median_ms"]))
+        epoch_ms = sum(buckets[s]["median_ms"] for s in shapes)
+        n_samples = sum(s[0] for s in shapes)
+        del trainer, epoch
         torch.cuda.empty_cache()
         tstats = eval_cli.main(["--data_root", data, *eval_flags, "-r", ck, ck])
         t_r2 = check_eval(tstats, os.path.join(os.path.dirname(ck), "eval_outputs_ensemble_*"))
@@ -610,26 +715,25 @@ def main() -> None:
         opt_state = step.optimizer.init(p)
         big = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(2, P, P).items()}
         gen = torch.Generator().manual_seed(0)
-        step(p, opt_state, big, gen)  # warm-up
-        torch.cuda.synchronize()
-        torch.cuda.reset_peak_memory_stats(dev)
-        big_ms = []
-        for _ in range(2):
-            t = time.perf_counter()
+
+        def big_step():
             _, _, aux = step(p, opt_state, big, gen)
             float(aux["optimization_loss"])
-            torch.cuda.synchronize()
-            big_ms.append((time.perf_counter() - t) * 1e3)
+
+        big_t = time_step(big_step)
+        profiles.append(profile_steps(f"full-width step {[2, P, P]}", big_step, big_t["median_ms"]))
         emit({
-            "phase": "train", "steps": len(step_ms), "batch_shapes": shapes,
-            "step_ms": step_ms, "median_step_ms": float(np.median(step_ms)),
-            "samples_per_s": 2 * len(step_ms) / (sum(step_ms) / 1e3),
-            "wall_s": train_wall, "peak_mem_bytes": train_peak, "losses": losses,
+            "phase": "train", "steps": len(shapes), "batch_shapes": [list(s) for s in shapes],
+            "buckets": list(buckets.values()), "step_reps": STEP_REPS,
+            "median_step_ms": float(np.median([buckets[s]["median_ms"] for s in shapes])),
+            "epoch_step_ms": epoch_ms, "samples_per_s": n_samples / (epoch_ms / 1e3),
+            "cli_wall_s": train_wall, "cli_peak_mem_bytes": train_peak, "losses": losses,
             "head_max_move": moved, "launches": train_launches,
             "ckpt_eval_adj_coarse_r2": t_r2,
-            "full_width_step": {"input": [2, P, P, 6], "ms": big_ms,
-                                "peak_mem_bytes": torch.cuda.max_memory_allocated(dev)},
+            "full_width_step": {"input": [2, P, P, 6], **big_t},
         })
+        for prof in profiles:
+            emit(prof)
         del big, p, opt_state, step
         torch.cuda.empty_cache()
 

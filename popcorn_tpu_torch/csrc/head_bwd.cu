@@ -269,19 +269,11 @@ __global__ void head_bwd_reduce(const float* __restrict__ part, int nblocks,
 
 }  // namespace popcorn
 
-// The gradient vector's length and the partial buffer's row count for n
-// pixels, so the caller can allocate the scratch (the kernel allocates
-// nothing).
-extern "C" int popcorn_head_bwd_sizes(long long n, int* npart, int* nblocks) {
-  const long long tiles = (n + popcorn::TP - 1) / popcorn::TP;
-  *npart = popcorn::NPART;
-  *nblocks = (int)(tiles < popcorn::MAX_BLOCKS ? tiles : popcorn::MAX_BLOCKS);
-  return 0;
-}
-
 // x (n,16), g (n,2), weights as kernel C; dx (n,16) or null to skip it;
-// part (nblocks, 9538) scratch; grads (9538) the flat
-// [dW1 db1 dW2 db2 dW3 db3 dW4 db4]. Returns a cudaError_t (0 on success).
+// part (nblocks, 9538) scratch, nblocks = min(ceil(n / TP), MAX_BLOCKS)
+// (the caller allocates it: the kernel allocates nothing); grads (9538)
+// the flat [dW1 db1 dW2 db2 dW3 db3 dW4 db4]. Returns a cudaError_t (0 on
+// success).
 extern "C" int popcorn_head_bwd_f32(const float* x, const float* g,
                                     const float* w1, const float* b1,
                                     const float* w2, const float* b2,
@@ -290,7 +282,7 @@ extern "C" int popcorn_head_bwd_f32(const float* x, const float* g,
                                     float* grads, long long n, int nblocks,
                                     void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (n == 0 || nblocks <= 0) return -1;
+  if (n == 0 || nblocks <= 0 || nblocks > popcorn::MAX_BLOCKS) return -1;
   constexpr size_t smem = sizeof(float) * popcorn::smem_floats();
   cudaError_t err = cudaFuncSetAttribute(
       popcorn::head_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,

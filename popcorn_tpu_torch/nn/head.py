@@ -89,6 +89,12 @@ def head_apply(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
 
 # launches of kernel D, counted where its wrapper launches it
 bwd_launches = 0
+# kernel D's sizes, as csrc/head_bwd.cu fixes them: the flat gradient
+# vector [dW1 db1 ... dW4 db4], the pixels of a tile, and the most blocks
+# (two on each of the H100's 132 SMs), each writing one partial row
+BWD_NPART = sum(ci * co + co for ci, co in zip(DIMS[:-1], DIMS[1:]))  # 9538
+BWD_TILE = 64
+BWD_MAX_BLOCKS = 132 * 2
 
 
 def _weights(p: Tree) -> List[torch.Tensor]:
@@ -136,13 +142,9 @@ def head_bwd_cuda(
     dx = torch.empty_like(feats) if need_dx else None
     if n == 0:
         return dx, [torch.zeros_like(w) for w in wts]
-    npart, nblocks = ctypes.c_int(), ctypes.c_int()
-    cuda_lib.function(
-        "head_bwd", "popcorn_head_bwd_sizes",
-        [ctypes.c_longlong, ctypes.POINTER(ctypes.c_int), ctypes.POINTER(ctypes.c_int)],
-    )(n, ctypes.byref(npart), ctypes.byref(nblocks))
-    part = torch.empty((nblocks.value, npart.value), device=dev, dtype=torch.float32)
-    flat = torch.empty((npart.value,), device=dev, dtype=torch.float32)
+    nblocks = min(-(-n // BWD_TILE), BWD_MAX_BLOCKS)
+    part = torch.empty((nblocks, BWD_NPART), device=dev, dtype=torch.float32)
+    flat = torch.empty((BWD_NPART,), device=dev, dtype=torch.float32)
     fn = cuda_lib.function(
         "head_bwd", "popcorn_head_bwd_f32",
         [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
@@ -151,7 +153,7 @@ def head_bwd_cuda(
     rc = fn(
         P(feats), P(g), *(P(w) for w in wts[:-1]),
         P(dx) if need_dx else ctypes.c_void_p(None), P(part), P(flat),
-        n, nblocks.value, cuda_lib.stream_ptr(dev),
+        n, nblocks, cuda_lib.stream_ptr(dev),
     )
     cuda_lib.check(rc, "head_bwd")
     bwd_launches += 1
