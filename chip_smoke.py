@@ -9,20 +9,31 @@ Phases, each printing one JSON line:
                patch, real channel widths, the repo's DDA weights) held
                against its plain PyTorch version on the same inputs, with
                kernel, plain and library times and the least time the
-               card could take (bound);
+               card could take (bound). The int8 kernels E-H take their
+               inputs from one member's streams on a seeded 2048^2 input
+               (static scales calibrated on it for E and F), plus the
+               builder's odd 519^2 blocks (G, H) and a w4a8 case (E); their
+               int8 outputs must equal their plain versions' bit for bit;
   4. model   — popcorn_forward on a small input, kernels against the CPU
                plain path;
   5. main    — the Bag-of-POPCORN eval through the eval CLI: a synthetic
                2304x2560 region, 5 members (DDA weights + seeded heads),
                patch 2048 / overlap 128, five GeoTIFFs and census metrics;
                the launch counts of kernels A, B, C must rise during it;
-  6. train_step — one training step (the repo's DDA weights, a seeded
+  6. quant   — the same eval with --quantize int8s, w4a8 and int8, then
+               int8 with pallas_stream=True (the builder quantized too)
+               through the Evaluator, then float again: finite GeoTIFFs,
+               every census r2 within QUANT_R2_BOUND of the float run, a
+               population map correlated >= QUANT_MAP_CORR with it, and
+               the launch counts of every kernel equal to QUANT_LAUNCHES
+               per patch; wall time and patches/s of each;
+  7. train_step — one training step (the repo's DDA weights, a seeded
                head, 2x192x160, a fixed sparsity mask) on the card against
                the CPU plain path in each memory tier (full gradient,
                encoder_no_grad, unet_no_grad): loss, every gradient leaf,
                frozen leaves exactly zero, the update, and launches of
                kernels A-D on the card;
-  7. train   — the train CLI on the same region with the verify skill's
+  8. train   — the train CLI on the same region with the verify skill's
                flags (1 epoch, 6 weak samples): finite losses, moved head,
                launches of A, B, C and D, last_model.pth, which the eval
                CLI then turns into finite maps with AdjCensus r2 > 0.9.
@@ -56,9 +67,33 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 on the CUDA
-# cores and HBM3 bandwidth. The kernels run FP32 FMA on CUDA cores.
+# cores, dense INT8 on the tensor cores, and HBM3 bandwidth. Kernels A-D
+# run FP32 FMA on CUDA cores; the int8 kernels E-H are held to the card's
+# int8 peak, though this first version runs __dp4a on the CUDA cores.
 PEAK_FP32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
+# no PyTorch call computes an int8 convolution (cuDNN's int8 path is not
+# reachable from torch), so the int8 kernels have no library yardstick
+NO_INT8_LIBRARY = "no PyTorch call computes an int8 convolution"
+# phase quant: the JAX package's census bound for a quantized eval
+# (tests/test_quantize_acceptance.py:27) and the map correlation it asks of
+# the int8 forward (tests/test_pallas_conv.py::test_int8_popcorn_forward_close)
+QUANT_R2_BOUND = 0.02
+QUANT_MAP_CORR = 0.99
+# launches per 2048^2 5-member patch: 2 streams x (3 DoubleConv + 2 Up) a
+# member and the builder's 6 + 4 (float unless pallas_stream), the head once
+# a member
+QUANT_LAUNCHES = {
+    "int8s": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv": 6, "up_block": 4, "head": 5},
+    "w4a8": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv": 6, "up_block": 4, "head": 5},
+    "int8": {"double_conv_q": 30, "up_block_q": 20, "double_conv": 6, "up_block": 4, "head": 5},
+    "int8+pallas_stream": {"double_conv_q": 36, "up_block_q": 24, "head": 5},
+    # the float eval again, last: the main phase's run is the process's
+    # first eval and pays its first-call costs, so the modes are timed
+    # between two float runs
+    "float": {"double_conv": 36, "up_block": 24, "head": 5},
+}
 # kernel vs plain version: float32 in both with different summation
 # orders (cuDNN/cuBLAS with TF32 off vs per-pixel FMA chains); observed
 # errors are ~1e-6 relative, so 1e-4 leaves room and still catches any
@@ -127,8 +162,8 @@ def time_ms(fn, reps: int = KERNEL_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float):
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -282,23 +317,38 @@ def main() -> None:
 
     cases = []  # one per checked call: kernel, name, member-forward multiplicity
 
-    def check_case(kernel, name, mult, kern_fn, plain_fn, lib_fn, flops, nbytes):
+    def check_case(kernel, name, mult, kern_fn, plain_fn, lib_fn, flops, nbytes,
+                   peak=PEAK_FP32_FLOPS):
+        """Hold the kernel against its plain version (int8 outputs bit for
+        bit, float ones at RTOL/ATOL), time both and the library call (None:
+        there is none), and record the case."""
         got = kern_fn()
         torch.cuda.synchronize()
         ref = plain_fn()
         torch.cuda.synchronize()
-        max_abs, max_rel = compare(got, ref, name)
+        if got.dtype == torch.int8:
+            if got.shape != ref.shape or ref.dtype != torch.int8:
+                raise AssertionError(f"{name}: {got.shape} int8 vs {ref.shape} {ref.dtype}")
+            n_diff = int((got != ref).sum())
+            if n_diff:
+                raise AssertionError(f"{name}: {n_diff} int8 codes differ from the plain version's")
+            max_abs = max_rel = 0.0
+        else:
+            max_abs, max_rel = compare(got, ref, name)
         del got, ref
         k_ms = time_ms(kern_fn)
         p_ms = time_ms(plain_fn)
-        l_ms = time_ms(lib_fn)
-        b_ms, by = bound(flops, nbytes)
+        l_ms = time_ms(lib_fn) if lib_fn is not None else None
+        b_ms, by = bound(flops, nbytes, peak)
         case = {
             "phase": "kernel", "kernel": kernel, "case": name, "per_member_calls": mult,
             "max_abs_err": max_abs, "max_rel_err": max_rel, "rtol": RTOL, "atol": ATOL,
             "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "peak_ops_per_s": peak,
         }
+        if lib_fn is None:
+            case["library_note"] = NO_INT8_LIBRARY
         emit(case)
         cases.append(case)
 
@@ -444,6 +494,104 @@ def main() -> None:
         del x, gout
         torch.cuda.empty_cache()
     torch.cuda.empty_cache()
+
+    # kernels E-H (int8), on one member's streams at a seeded 2048^2 input:
+    # E and F on the static path's codes, with scales calibrated on that
+    # input; G and H on the float stream's activations (kernels A and B);
+    # plus the builder's odd 519^2 down2 and 519^2 -> 1038^2 up2 at 2076^2
+    # (G, H) and a w4a8 down1 (E). Each block's input is the previous
+    # block's output, which the check has just held to the plain version.
+    from popcorn_tpu_torch.nn import quant as Q
+    from popcorn_tpu_torch.nn.ops import max_pool_2x2, reflect_pad
+
+    def dc_cost(x, p, in_b, out_b):
+        npx, cin = x.shape[0] * x.shape[1] * x.shape[2], x.shape[3]
+        cm, cout = p["conv1"]["w"].shape[3], p["conv2"]["w"].shape[3]
+        macs = 9 * (cin * cm + cm * cout)
+        return 2.0 * npx * macs, npx * (cin * in_b + cout * out_b) + macs + 4.0 * 2 * (cm + cout)
+
+    def up_cost(x1, x2, p, in_b, out_b):
+        npx, cs, c1 = x2.shape[0] * x2.shape[1] * x2.shape[2], x2.shape[3], x1.shape[3]
+        cu = p["tconv"]["w"].shape[3]
+        cm, cout = p["conv"]["conv1"]["w"].shape[3], p["conv"]["conv2"]["w"].shape[3]
+        macs_px = c1 * cu + 9 * ((cs + cu) * cm + cm * cout)
+        nw = c1 * 4 * cu + 9 * ((cs + cu) * cm + cm * cout)
+        return (2.0 * npx * macs_px,
+                (x1.numel() + x2.numel()) * in_b + npx * cout * out_b + nw + 4.0 * (5 * cu + 3 * cm + 2 * cout))
+
+    def shape_name(*ts):
+        return "+".join("x".join(map(str, t.shape)) for t in ts)
+
+    def e_case(name, mult, stream, block, xq, s_x, s_y1, s_out, wbits=8):
+        p, bn = unet[stream][block], unet_bn[stream][block]
+        a, fo = A.qs_args(p, bn, s_x, s_y1, s_out, wbits), s_out is None
+        ops, nb = dc_cost(xq, p, 1, 4 if fo else 1)
+        check_case("double_conv_qs", f"{name} {shape_name(xq)}", mult,
+                   lambda: A.double_conv_qs_cuda(*a, xq, fo), lambda: A.double_conv_qs_plain(*a, xq, fo),
+                   None, ops, nb, PEAK_INT8_OPS)
+        return A.double_conv_qs_cuda(*a, xq, fo)
+
+    def f_case(name, mult, stream, block, x1q, x2q, s_x1, s_x2, s_up, s_y1, s_out):
+        p, bn = unet[stream][block], unet_bn[stream][block]
+        a, fo = B.qs_args(p, bn, s_x1, s_x2, s_up, s_y1, s_out), s_out is None
+        ops, nb = up_cost(x1q, x2q, p, 1, 4 if fo else 1)
+        check_case("up_block_qs", f"{name} {shape_name(x1q, x2q)}", mult,
+                   lambda: B.up_block_qs_cuda(*a, x1q, x2q, fo),
+                   lambda: B.up_block_qs_plain(*a, x1q, x2q, fo), None, ops, nb, PEAK_INT8_OPS)
+        return B.up_block_qs_cuda(*a, x1q, x2q, fo)
+
+    def g_case(name, mult, stream, block, x):
+        p, bn = unet[stream][block], unet_bn[stream][block]
+        a = A.q_args(p, bn)
+        ops, nb = dc_cost(x, p, 4, 4)
+        check_case("double_conv_q", f"{name} {shape_name(x)}", mult,
+                   lambda: A.double_conv_q_cuda(*a, x), lambda: A.double_conv_q_plain(*a, x),
+                   None, ops, nb, PEAK_INT8_OPS)
+
+    def h_case(name, mult, stream, block, x1, x2):
+        p, bn = unet[stream][block], unet_bn[stream][block]
+        a = B.q_args(p, bn)
+        ops, nb = up_cost(x1, x2, p, 4, 4)
+        check_case("up_block_q", f"{name} {shape_name(x1, x2)}", mult,
+                   lambda: B.up_block_q_cuda(*a, x1, x2), lambda: B.up_block_q_plain(*a, x1, x2),
+                   None, ops, nb, PEAK_INT8_OPS)
+
+    x6 = torch.randn(1, P, P, 6, device=dev, generator=g)
+    xs, xo = x6[..., :2].contiguous(), x6[..., 2:].contiguous()
+    s, so = (Q.calibrate_stream(unet[k], unet_bn[k], xx) for k, xx in (("sar", xs), ("opt", xo)))
+    qx1 = e_case("inc_sar", 1, "sar", "inc", Q.quantize_static(xs, s["in"]), s["in"], s["inc_y1"], s["inc_out"])
+    e_case("inc_opt", 1, "opt", "inc", Q.quantize_static(xo, so["in"]), so["in"], so["inc_y1"], so["inc_out"])
+    qd1 = e_case("down1", 2, "sar", "down1", max_pool_2x2(qx1), s["inc_out"], s["down1_y1"], s["down1_out"])
+    e_case("down1_w4a8", 0, "sar", "down1", max_pool_2x2(qx1), s["inc_out"], s["down1_y1"],
+           s["down1_out"], wbits=4)
+    qd2 = e_case("down2", 2, "sar", "down2", max_pool_2x2(qd1), s["down1_out"], s["down2_y1"], s["down2_out"])
+    qu2 = f_case("up2", 2, "sar", "up2", qd2, qd1, s["down2_out"], s["down1_out"], s["up2_up"],
+                 s["up2_y1"], s["up2_out"])
+    f_case("up1_float_out", 2, "sar", "up1", qu2, qx1, s["up2_out"], s["inc_out"], s["up1_up"],
+           s["up1_y1"], None)
+    del qx1, qd1, qd2, qu2
+    with torch.no_grad():
+        fx1 = A.double_conv_cuda(unet["sar"]["inc"], unet_bn["sar"]["inc"], xs)
+        fd1 = A.double_conv_cuda(unet["sar"]["down1"], unet_bn["sar"]["down1"], max_pool_2x2(fx1))
+        fd2 = A.double_conv_cuda(unet["sar"]["down2"], unet_bn["sar"]["down2"], max_pool_2x2(fd1))
+        fu2 = B.up_block_cuda(unet["sar"]["up2"], unet_bn["sar"]["up2"], fd2, fd1)
+    g_case("inc_sar", 1, "sar", "inc", xs)
+    g_case("inc_opt", 1, "opt", "inc", xo)
+    g_case("down1", 2, "sar", "down1", max_pool_2x2(fx1))
+    g_case("down2", 2, "sar", "down2", max_pool_2x2(fd1))
+    h_case("up2", 2, "sar", "up2", fd2, fd1)
+    h_case("up1", 2, "sar", "up1", fu2, fx1)
+    del fx1, fd1, fd2, fu2
+    # the builder: 2048^2 reflect-padded by 14 to 2076^2, 519^2 at down2
+    xb = reflect_pad(xs, 14).contiguous()
+    with torch.no_grad():
+        bx1 = A.double_conv_cuda(unet["sar"]["inc"], unet_bn["sar"]["inc"], xb)
+        bd1 = A.double_conv_cuda(unet["sar"]["down1"], unet_bn["sar"]["down1"], max_pool_2x2(bx1))
+        bd2 = A.double_conv_cuda(unet["sar"]["down2"], unet_bn["sar"]["down2"], max_pool_2x2(bd1))
+    g_case("down2_builder_odd", 0, "sar", "down2", max_pool_2x2(bd1))
+    h_case("up2_builder_odd", 0, "sar", "up2", bd2, bd1)
+    del x6, xs, xo, xb, bx1, bd1, bd2
+    torch.cuda.empty_cache()
     if args.kernels:
         return
 
@@ -508,7 +656,19 @@ def main() -> None:
             save_popcorn_checkpoint(members[-1], params, consts)
         setup_s = time.perf_counter() - t0
 
-        A.launches = B.launches = C.launches = 0
+        counters = {"double_conv": (A, "launches"), "up_block": (B, "launches"),
+                    "head": (C, "launches"), "double_conv_qs": (A, "launches_qs"),
+                    "up_block_qs": (B, "launches_qs"), "double_conv_q": (A, "launches_q"),
+                    "up_block_q": (B, "launches_q")}
+
+        def reset_launches():
+            for mod, attr in counters.values():
+                setattr(mod, attr, 0)
+
+        def read_launches():
+            return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+
+        reset_launches()
         torch.cuda.reset_peak_memory_stats(dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -528,6 +688,63 @@ def main() -> None:
             "peak_mem_bytes": peak, "launches": launches,
             "adj_coarse_r2": r2, "main_coarse_r2": stats["Population_MainCensus_rwa_coarse/r2"],
         })
+
+        # ---------------------------------------------------------------- 6. quant
+        import dataclasses
+
+        from popcorn_tpu_torch.cli.args import eval_config_from_args, eval_parser, model_config_from_args
+        from popcorn_tpu_torch.config import DataPaths
+        from popcorn_tpu_torch.infer.evaluator import Evaluator
+
+        def read_map(folder_glob):
+            with GeoTIFF(os.path.join(glob.glob(folder_glob)[0], "rwa_predictions.tif")) as gt:
+                return gt.read(1, squeeze=True).astype(np.float64)
+
+        float_map = read_map(os.path.join(tmp, "eval_outputs_ensemble_*"))
+        quant_launches = {}
+        for mode, want in QUANT_LAUNCHES.items():
+            # each mode's members in a folder of their own, where its
+            # Evaluator writes its outputs
+            mdir = os.path.join(tmp, f"quant_{mode}")
+            os.makedirs(mdir)
+            links = []
+            for m in members:
+                links.append(os.path.join(mdir, os.path.basename(m)))
+                os.symlink(m, links[-1])
+            argv = ["--data_root", data, *eval_flags, "-r", *links]
+            reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if mode == "int8+pallas_stream":
+                # the JAX package has no CLI flag for it: the config through
+                # the Evaluator, which runs run_sliding_inference with it
+                a = eval_parser().parse_args(argv)
+                mcfg_q = dataclasses.replace(model_config_from_args(a), quantize="int8", pallas_stream=True)
+                stats_q = Evaluator(DataPaths(data), mcfg_q, eval_config_from_args(a),
+                                    device=dev).test_target(save=True)
+            else:
+                stats_q = eval_cli.main(argv if mode == "float" else [*argv, "--quantize", mode])
+            torch.cuda.synchronize()
+            q_wall = time.perf_counter() - t0
+            got_l = read_launches()
+            want_l = {k: want.get(k, 0) * n_patches for k in counters}
+            if got_l != want_l:
+                raise AssertionError(f"quant {mode}: launches {got_l}, expected {want_l}")
+            quant_launches[mode] = got_l
+            folder_glob = os.path.join(mdir, "eval_outputs_ensemble_*")
+            q_r2 = check_eval(stats_q, folder_glob)
+            deltas = {k: stats_q[k] - stats[k] for k in stats if k.endswith("/r2")}
+            q_map = read_map(folder_glob)
+            corr = float(np.corrcoef(float_map.ravel(), q_map.ravel())[0, 1])
+            emit({
+                "phase": "quant", "mode": mode, "patches": n_patches, "wall_s": q_wall,
+                "patches_per_s": n_patches / q_wall, "float_wall_s": wall,
+                "float_patches_per_s": n_patches / wall, "launches": got_l,
+                "r2_deltas": deltas, "r2_bound": QUANT_R2_BOUND, "map_corr": corr,
+                "map_corr_min": QUANT_MAP_CORR, "adj_coarse_r2": q_r2,
+            })
+            if max(abs(d) for d in deltas.values()) > QUANT_R2_BOUND or not corr >= QUANT_MAP_CORR:
+                raise AssertionError(f"quant {mode}: census r2 deltas {deltas}, map correlation {corr}")
 
         # ---------------------------------------------------------- 6. train_step
         from popcorn_tpu_torch.cli import train as train_cli
@@ -738,27 +955,39 @@ def main() -> None:
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- summary
-    launches = {**launches, "head_bwd": train_launches["head_bwd"]}
+    # each kernel's launches from the run of its own path: A-C the float
+    # eval (main), D training, E/F the int8s eval, G/H the int8 eval
+    launches = {**launches, "head_bwd": train_launches["head_bwd"],
+                "double_conv_qs": quant_launches["int8s"]["double_conv_qs"],
+                "up_block_qs": quant_launches["int8s"]["up_block_qs"],
+                "double_conv_q": quant_launches["int8"]["double_conv_q"],
+                "up_block_q": quant_launches["int8"]["up_block_q"]}
     meta = {
         "double_conv": ("popcorn_tpu_torch/csrc/double_conv.cu", "popcorn_tpu/nn/pallas_conv.py:101"),
         "up_block": ("popcorn_tpu_torch/csrc/up_block.cu", "popcorn_tpu/nn/pallas_conv.py:472"),
         "head": ("popcorn_tpu_torch/csrc/head.cu", "popcorn_tpu/nn/pallas_packed_head.py:83"),
         "head_bwd": ("popcorn_tpu_torch/csrc/head_bwd.cu", "popcorn_tpu/nn/pallas_head.py:56"),
+        "double_conv_qs": ("popcorn_tpu_torch/csrc/double_conv_qs.cu", "popcorn_tpu/nn/pallas_conv.py:235"),
+        "up_block_qs": ("popcorn_tpu_torch/csrc/up_block_qs.cu", "popcorn_tpu/nn/pallas_conv.py:282"),
+        "double_conv_q": ("popcorn_tpu_torch/csrc/double_conv_q.cu", "popcorn_tpu/nn/pallas_conv.py:163"),
+        "up_block_q": ("popcorn_tpu_torch/csrc/up_block_q.cu", "popcorn_tpu/nn/pallas_conv.py:533"),
     }
     kernels = []
     for kname, (src, replaces) in meta.items():
         mine = [c for c in cases if c["kernel"] == kname]
         on_path = [c for c in mine if c["per_member_calls"] > 0]
         tot = lambda key: sum(c[key] * c["per_member_calls"] for c in on_path)  # noqa: E731
-        b_ops = sum(c["gflop"] * 1e9 * c["per_member_calls"] for c in on_path) / PEAK_FP32_FLOPS
+        b_ops = sum(c["gflop"] * 1e9 * c["per_member_calls"] / c.get("peak_ops_per_s", PEAK_FP32_FLOPS)
+                    for c in on_path)
         b_bytes = sum(c["mbytes"] * 1e6 * c["per_member_calls"] for c in on_path) / PEAK_HBM_BYTES
+        no_lib = any(c["library_ms"] is None for c in on_path)
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "library_ms": tot("library_ms"),
+            "library_ms": None if no_lib else tot("library_ms"),
         })
     emit({"kernels": kernels})
     print(smi, flush=True)

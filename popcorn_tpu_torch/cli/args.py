@@ -58,6 +58,13 @@ def eval_parser() -> argparse.ArgumentParser:
                         "inference_patch_size=2048, utils/constants.py:12)")
     p.add_argument("--patch_overlap", type=int, default=128,
                    help="sliding-window halo (reference overlap=128)")
+    p.add_argument("--quantize", choices=["int8", "int8s", "w4a8"], default=None,
+                   help="int8 eval through the int8 UNet-block kernels: 'int8' = "
+                        "dynamic per-tile activation scales (kernels G/H); "
+                        "'int8s' = static scales calibrated on the first patch "
+                        "batch, int8 block I/O (kernels E/F); 'w4a8' = int8s "
+                        "with int4-grid weights. Census r2 stays within 0.02 "
+                        "of the float run")
     return p
 
 
@@ -139,8 +146,10 @@ def train_parser() -> argparse.ArgumentParser:
                    help="auto/off: the host feed; on raises (the device-resident "
                         "feed is ROADMAP.md Queue 1 item 13)")
     p.add_argument("--quantize_eval", choices=["int8", "int8s", "w4a8"], default=None,
-                   help="raises: quantized eval is not ported yet (ROADMAP.md "
-                        "Queue 1 item 11)")
+                   help="run the in-training target test and weak validation "
+                        "through quantized inference (as eval --quantize); the "
+                        "train steps stay float. Explicit opt-in: quantized "
+                        "validation steers best-model selection")
     p.add_argument("--feed_gate", choices=("auto", "off", "host"), default="auto",
                    help="auto/host: the host feed; off (keep the season-rotating "
                         "feed) raises (ROADMAP.md Queue 1 item 13)")
@@ -160,10 +169,6 @@ def check_train_args(a) -> None:
         raise NotImplementedError(
             "--ensemble_parallel > 1 is not ported yet (ROADMAP.md Queue 1 item 16)"
         )
-    if a.quantize_eval is not None:
-        raise NotImplementedError(
-            f"--quantize_eval {a.quantize_eval} is not ported yet (ROADMAP.md Queue 1 item 11)"
-        )
 
 
 def model_config_from_args(a) -> ModelConfig:
@@ -180,6 +185,7 @@ def model_config_from_args(a) -> ModelConfig:
         segmentation_input=a.segmentationinput,
         feature_extractor=a.feature_extractor,
         compute_dtype=a.compute_dtype,
+        quantize=getattr(a, "quantize", None) or getattr(a, "quantize_eval", None),
         remat_unet=getattr(a, "remat_unet", False),
     )
 

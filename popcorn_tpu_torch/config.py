@@ -274,7 +274,18 @@ class ModelConfig:
     # segmentation raster (reference utils/utils.py:153-159)
     feature_extractor: str = "DDA"
     compute_dtype: str = "float32"  # the kernels take float32 only
-    quantize: Optional[str] = None  # int8 modes are not ported yet
+    quantize: Optional[str] = None  # eval only (train steps stay float):
+    # "int8": W8A8 through the dynamic int8 kernels (nn/double_conv.py::
+    # double_conv_q, nn/up_block.py::up_block_q), one activation scale per
+    # kernel tile and per-channel weight scales, float block I/O;
+    # "int8s": static activation scales calibrated once per member on the
+    # first patch batch (nn/quant.py::calibrate_stream), int8 block I/O
+    # through each member stream (double_conv_qs, up_block_qs);
+    # "w4a8": int8s with int4-grid weights in int8 carriers
+    pallas_stream: Optional[bool] = None  # True with quantize="int8" also
+    # quantizes the building extractor (popcorn_tpu/nn/popcorn.py::
+    # builder_use_pallas); the port's blocks always run its kernels, so it
+    # has no other effect here
     remat_unet: bool = False  # torch.utils.checkpoint the trainable UNet
     # blocks in training: their activations are recomputed in the backward
 

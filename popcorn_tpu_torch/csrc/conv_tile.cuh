@@ -13,8 +13,14 @@
 
 namespace popcorn {
 
-constexpr int TH = 16;
-constexpr int TW = 16;
+// The tile edge comes from the build (nn/cuda_lib.py::TILE): the dynamic
+// int8 kernels take one activation scale per tile, and their plain versions
+// cut the image into the same tiles.
+#ifndef POPCORN_TILE
+#error "build with -DPOPCORN_TILE=<tile edge> (nn/cuda_lib.py::NVCC_FLAGS)"
+#endif
+constexpr int TH = POPCORN_TILE;
+constexpr int TW = POPCORN_TILE;
 constexpr int NTHREADS = TH * TW;  // one thread per output pixel of conv2
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }

@@ -9,6 +9,7 @@ adjustment, writes the ADJ map and re-evaluates.
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import threading
 import time
@@ -25,7 +26,7 @@ from ..data.dataset import PopulationDataset
 from ..data.normalize import NormStats
 from ..io.geotiff import GeoTIFF
 from ..losses.metrics import get_test_metrics
-from ..utils.log import MetricsLogger
+from ..utils.log import MetricsLogger, write_args
 from .sliding import resolve_device, run_sliding_inference
 
 
@@ -103,6 +104,8 @@ class Evaluator:
             ),
         )
         os.makedirs(self.experiment_folder, exist_ok=True)
+        # the model config carries ``quantize`` into the fold and the record
+        write_args(self.experiment_folder, {**dataclasses.asdict(mcfg), **dataclasses.asdict(ecfg)})
         self.logger = MetricsLogger(self.experiment_folder, use_wandb=use_wandb)
 
         self.members = []

@@ -12,6 +12,12 @@ host-feed path:
     that stay on the device, and one finalize computes the visit-count
     mean and the std sqrt((sum_sq - n*mean^2)/(n-1)) (run_eval.py:137-154),
     including the reference's count > 1 divide-mask quirk.
+
+Quantized eval: with ``quantize`` int8s/w4a8 each member's static int8
+scales are calibrated once, on the first patch batch of the region, and
+kept for the rest of it (popcorn_tpu/infer/sliding.py:374-416); with
+'int8' and ``pallas_stream=True`` the builder runs the dynamic int8
+kernels too.
 """
 
 from __future__ import annotations
@@ -25,7 +31,14 @@ from ..config import ModelConfig
 from ..data.dataset import PopulationDataset
 from ..data.feed import InferenceFeed
 from ..data.normalize import NormStats, normalize_and_assemble
-from ..nn.popcorn import check_config, create_building_score, popcorn_predict
+from ..nn.popcorn import (
+    builder_quantized,
+    calibrate_member_scales,
+    check_config,
+    create_building_score,
+    popcorn_predict,
+    quantize_static_int8,
+)
 
 Tree = Dict[str, Any]
 
@@ -68,11 +81,29 @@ def make_patch_forward(mcfg: ModelConfig, consts: Tree, stats: NormStats, n_memb
         x = normalize_and_assemble(sample, stats)
         if mcfg.sentinel_buildings or not mcfg.occupancy_model:
             score = create_building_score(
-                consts["builder"], x, s1=mcfg.s1, s2=mcfg.s2, nir=mcfg.nir
+                consts["builder"], x, s1=mcfg.s1, s2=mcfg.s2, nir=mcfg.nir,
+                quantize=builder_quantized(mcfg),
             )
         else:
             score = batch["building_counts"]
         return x, score
+
+    # static int8: the members' scales, calibrated on the first batch the
+    # fold sees (None where the static path does not apply: one stream, or
+    # a patch whose sides are not multiples of 4)
+    static_q = quantize_static_int8(mcfg) and mcfg.s1 and mcfg.s2
+    calibrated: Dict[str, Any] = {}
+
+    def member_scales(member_params, x):
+        if not static_q:
+            return [None] * len(member_params)
+        if "scales" not in calibrated:
+            ok = x.shape[1] % 4 == 0 and x.shape[2] % 4 == 0
+            calibrated["scales"] = [
+                calibrate_member_scales(p, consts, x, mcfg_member) if ok else None
+                for p in member_params
+            ]
+        return calibrated["scales"]
 
     def members(member_params, x, score, mask, valid):
         """The plain member fold (popcorn_tpu/infer/sliding.py:229-246):
@@ -81,8 +112,8 @@ def make_patch_forward(mcfg: ModelConfig, consts: Tree, stats: NormStats, n_memb
         zeros = torch.zeros(score.shape[:3], dtype=torch.float32, device=x.device)
         ds, dsq, ss, ssq = (zeros.clone() for _ in range(4))
         inputs = {"input": x, "building_counts": score}
-        for params in member_params:
-            out = popcorn_predict(params, consts, inputs, mcfg_member, padding=False)
+        for params, scales in zip(member_params, member_scales(member_params, x)):
+            out = popcorn_predict(params, consts, inputs, mcfg_member, padding=False, scales=scales)
             dense = out["popdensemap"].float()
             scale = out["scale"]
             scale = torch.zeros_like(dense) if scale is None else scale.float()

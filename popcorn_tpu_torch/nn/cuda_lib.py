@@ -27,10 +27,18 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
-KERNEL_SOURCES = ("double_conv", "up_block", "head", "head_bwd")
+KERNEL_SOURCES = (
+    "double_conv", "up_block", "head", "head_bwd",
+    "double_conv_qs", "up_block_qs", "double_conv_q", "up_block_q",
+)
+# The edge of the square output tile that one block of the UNet-block
+# kernels owns (csrc/conv_tile.cuh reads it as POPCORN_TILE). The dynamic
+# int8 kernels take one activation scale per tile, so their plain versions
+# (nn/quant.py) cut the image into the same tiles.
+TILE = 16
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-shared", "-Xcompiler", "-fPIC", f"-DPOPCORN_TILE={TILE}",
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -151,9 +159,15 @@ def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
     tensor with no ``grad_fn``, so it would cut the gradient to zero
     silently. Blocks that train run their plain composition instead, and
     frozen ones run under ``torch.no_grad()`` (nn/unet.py)."""
-    dev = tensors[0].device
+    require_cuda(name, [(t, torch.float32) for t in tensors])
+
+
+def require_cuda(name: str, typed) -> None:
+    """``require_cuda_f32`` for kernels that also take int8 activations or
+    weights: ``typed`` is a sequence of (tensor, dtype) pairs."""
+    dev = typed[0][0].device
     grad_mode = torch.is_grad_enabled()
-    for i, t in enumerate(tensors):
+    for i, (t, dtype) in enumerate(typed):
         if grad_mode and t.requires_grad:
             raise RuntimeError(
                 f"{name}: argument {i} requires a gradient; the kernel has no "
@@ -161,7 +175,7 @@ def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:
             )
         if t.device != dev or t.device.type != "cuda":
             raise ValueError(f"{name}: argument {i} is on {t.device}, expected {dev}")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name}: argument {i} is {t.dtype}; the kernel takes float32")
+        if t.dtype != dtype:
+            raise TypeError(f"{name}: argument {i} is {t.dtype}; the kernel takes {dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name}: argument {i} is not contiguous")

@@ -12,6 +12,14 @@ packed and wide engines (nn/packed.py, nn/wide.py) are TPU lane layouts
 of the same math. As in the JAX package, the sparsity mask of training
 only restricts the scale regulariser: the head runs densely, and every
 pixel that can add to popcount lies in the mask.
+
+Quantized eval (``cfg.quantize``, never in training) follows the JAX
+package's gates: 'int8' runs the member UNets' blocks through the dynamic
+int8 kernels on an unpadded input, and the building extractor too with
+``pallas_stream=True``; 'int8s'/'w4a8' run both member streams in static
+int8 when the caller passes the member's calibrated ``scales`` (the eval
+fold, infer/sliding.py), an unpadded input and H % 4 == W % 4 == 0, and
+float otherwise, as the JAX package's popcorn_forward does.
 """
 
 from __future__ import annotations
@@ -23,7 +31,8 @@ import torch
 from ..config import ModelConfig
 from .head import head_apply, head_train
 from .ops import add_padding, revert_padding
-from .unet import building_logits, dual_stream_features
+from .quant import calibrate_stream
+from .unet import SAR_IN, building_logits, dual_stream_features, unet_stream_qs
 
 Tree = Dict[str, Any]
 
@@ -49,27 +58,74 @@ def reorder_to_dda(x: torch.Tensor, *, s1: bool, s2: bool, nir: bool) -> torch.T
     raise ValueError("at least one of S1/S2 must be enabled")
 
 
+QUANTIZE_MODES = ("int8", "int8s", "w4a8")
+
+
 def check_config(cfg: ModelConfig) -> None:
-    """Raise for model options the port does not run yet."""
+    """Raise for model options the port does not run, or that conflict."""
     if cfg.compute_dtype != "float32":
         raise NotImplementedError(
             f"compute_dtype={cfg.compute_dtype!r}: the port's kernels take "
             "float32 only (bf16 is not ported yet)"
         )
-    if cfg.quantize:
-        raise NotImplementedError(f"quantize={cfg.quantize!r} is not ported yet")
+    if cfg.quantize is not None and cfg.quantize not in QUANTIZE_MODES:
+        raise ValueError(f"quantize={cfg.quantize!r}: one of {QUANTIZE_MODES} or None")
+    if cfg.quantize and cfg.pallas_stream is False:
+        # popcorn_tpu/nn/popcorn.py::use_pallas_stream
+        raise ValueError(
+            f"quantize={cfg.quantize!r} requires the fused UNet-block kernels; "
+            "pallas_stream=False conflicts with it — drop one of the two"
+        )
+
+
+def quantize_int8(cfg: ModelConfig, train: bool = False) -> bool:
+    """Dynamic int8 eval ('int8'): kernels G and H in the member UNets."""
+    return not train and cfg.quantize == "int8"
+
+
+def quantize_static_int8(cfg: ModelConfig, train: bool = False) -> bool:
+    """Static int8 eval ('int8s', and 'w4a8' with int4-grid weights):
+    kernels E and F with calibrated scales, in the eval fold."""
+    return not train and cfg.quantize in ("int8s", "w4a8")
+
+
+def weight_bits(cfg: ModelConfig) -> int:
+    return 4 if cfg.quantize == "w4a8" else 8
+
+
+def builder_quantized(cfg: ModelConfig, train: bool = False) -> bool:
+    """Whether the building extractor runs the dynamic int8 kernels: only
+    with 'int8' and ``pallas_stream=True``. The JAX package keeps the
+    builder in float in every quantize mode unless that flag asks for its
+    fused kernels (popcorn_tpu/nn/popcorn.py::builder_use_pallas, the
+    ``quantized=quantize_int8(cfg) and bp`` of its callers)."""
+    return quantize_int8(cfg, train) and cfg.pallas_stream is True
+
+
+def calibrate_member_scales(params: Tree, consts: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tree:
+    """Static int8 scales of one member's two UNet streams from a
+    calibration batch ``x`` (the unpadded normalized input, as the fold
+    sees it): {'sar': ..., 'opt': ...}, each nn/quant.py::calibrate_stream's
+    12 scales."""
+    x6 = reorder_to_dda(x, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir)
+    return {
+        "sar": calibrate_stream(params["unet"]["sar"], consts["unet_bn"]["sar"], x6[..., :SAR_IN]),
+        "opt": calibrate_stream(params["unet"]["opt"], consts["unet_bn"]["opt"], x6[..., SAR_IN:]),
+    }
 
 
 @torch.no_grad()
 def create_building_score(
-    builder: Tree, x_input: torch.Tensor, *, s1: bool, s2: bool, nir: bool
+    builder: Tree, x_input: torch.Tensor, *, s1: bool, s2: bool, nir: bool,
+    quantize: bool = False,
 ) -> torch.Tensor:
     """On-the-fly built-up probability (model/popcorn.py:279-322):
-    reflect-pad 14 px, the frozen building-extractor UNet, sigmoid, unpad.
+    reflect-pad 14 px, the frozen building-extractor UNet (dynamic int8
+    blocks with ``quantize``, see ``builder_quantized``), sigmoid, unpad.
     Returns the (B, H, W) score."""
     xp, pad = add_padding(x_input, force=True)
     x6 = reorder_to_dda(xp, s1=s1, s2=s2, nir=nir)
-    logits = building_logits(builder["params"], builder["bn"], x6, s1=s1, s2=s2)
+    logits = building_logits(builder["params"], builder["bn"], x6, s1=s1, s2=s2, quantize=quantize)
     score = torch.sigmoid(logits.float())
     return revert_padding(score, pad)[..., 0]
 
@@ -113,11 +169,11 @@ def sparsity_mask(
 @torch.no_grad()
 def popcorn_predict(
     params: Tree, consts: Tree, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
-    *, padding: bool = True,
+    *, padding: bool = True, scales: Optional[Tree] = None,
 ) -> Dict[str, Any]:
     """The eval forward without autograd: every UNet block and the
     channel-0 head through their kernels on the card."""
-    return popcorn_forward(params, consts, inputs, cfg, padding=padding)
+    return popcorn_forward(params, consts, inputs, cfg, padding=padding, scales=scales)
 
 
 def popcorn_forward(
@@ -133,6 +189,7 @@ def popcorn_forward(
     sparse: bool = False,
     generator: Optional[torch.Generator] = None,
     mask: Optional[torch.Tensor] = None,
+    scales: Optional[Tree] = None,
 ) -> Dict[str, Any]:
     """Full POPCORN forward pass (model/popcorn.py:100-193).
 
@@ -150,7 +207,9 @@ def popcorn_forward(
     kernels and the head emits channel 0 only: call it under no_grad
     (``popcorn_predict``), as the kernels refuse tensors that need a
     gradient. ``sparse`` draws the sparsity mask from ``generator``
-    unless a precomputed ``mask`` (B,H,W) bool is given.
+    unless a precomputed ``mask`` (B,H,W) bool is given. ``scales``: the
+    member's static int8 scales (``calibrate_member_scales``), which the
+    'int8s'/'w4a8' eval uses where it applies (module docstring).
 
     Returns {'popcount': (B,), 'popdensemap': (B,H,W), 'scale': (B,H,W)
     or None, 'scale_abs_mean': mean |scale| (over the mask when sparse) or
@@ -160,7 +219,8 @@ def popcorn_forward(
     x = inputs["input"]
     if "building_counts" not in inputs or cfg.sentinel_buildings:
         building_counts = create_building_score(
-            consts["builder"], x, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir
+            consts["builder"], x, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir,
+            quantize=builder_quantized(cfg, train),
         )
     else:
         building_counts = inputs["building_counts"]
@@ -179,12 +239,29 @@ def popcorn_forward(
 
     xp, pad = add_padding(x, force=padding)
     x6 = reorder_to_dda(xp, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir)
-    trainable = train and not unet_no_grad
-    feats = dual_stream_features(
-        params["unet"], consts["unet_bn"], x6, s1=cfg.s1, s2=cfg.s2,
-        train=trainable, encoder_stop_grad=encoder_no_grad,
-        remat=cfg.remat_unet and trainable,
-    )
+    # the JAX package quantizes only in its packed engine, which it takes
+    # for an unpadded input (popcorn_tpu/nn/popcorn.py:557-562)
+    unpadded = pad == (None, None, None, None)
+    h, w = x6.shape[1], x6.shape[2]
+    if (
+        quantize_static_int8(cfg, train) and scales is not None and unpadded
+        and cfg.s1 and cfg.s2 and h % 4 == 0 and w % 4 == 0
+    ):
+        wb = weight_bits(cfg)
+        feats = torch.cat([
+            unet_stream_qs(params["unet"]["sar"], consts["unet_bn"]["sar"], x6[..., :SAR_IN],
+                           scales["sar"], wb),
+            unet_stream_qs(params["unet"]["opt"], consts["unet_bn"]["opt"], x6[..., SAR_IN:],
+                           scales["opt"], wb),
+        ], dim=-1)
+    else:
+        trainable = train and not unet_no_grad
+        feats = dual_stream_features(
+            params["unet"], consts["unet_bn"], x6, s1=cfg.s1, s2=cfg.s2,
+            train=trainable, encoder_stop_grad=encoder_no_grad,
+            remat=cfg.remat_unet and trainable,
+            quantize=quantize_int8(cfg, train) and unpadded,
+        )
     feats = revert_padding(feats, pad).contiguous()
     if train:
         out = head_train(params["head"], feats)[..., 0]

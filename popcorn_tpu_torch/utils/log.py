@@ -23,12 +23,17 @@ def new_log(folder_path: str, args: Optional[Dict] = None):
     experiment_folder = os.path.join(folder_path, f"experiment_{n_exp}_{randn}")
     os.makedirs(experiment_folder)
     if args is not None:
-        with open(os.path.join(experiment_folder, "args.csv"), "w") as fh:
-            w = csv.writer(fh)
-            w.writerow(["key", "value"])
-            for k, v in args.items():
-                w.writerow([k, v])
+        write_args(experiment_folder, args)
     return experiment_folder, n_exp, randn
+
+
+def write_args(folder: str, args: Dict) -> None:
+    """The run's configuration as args.csv, one key a row."""
+    with open(os.path.join(folder, "args.csv"), "w") as fh:
+        w = csv.writer(fh)
+        w.writerow(["key", "value"])
+        for k, v in args.items():
+            w.writerow([k, v])
 
 
 class MetricsLogger:

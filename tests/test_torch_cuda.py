@@ -2,8 +2,9 @@
 odd sizes and batch 2 that the main path's shapes do not reach: ragged
 tiles, pad_to_match rings (also with a top/left offset), a pixel count no
 multiple of the head's block, the head backward (kernel D) at pixel
-counts of 1, one tile plus one and ragged shapes, and the wrappers'
-refusals, including of tensors that need a gradient.
+counts of 1, one tile plus one and ragged shapes, the int8 kernels E-H at
+the same odd sizes (int8 outputs bit-equal to their plain versions), and
+the wrappers' refusals, including of tensors that need a gradient.
 
 Needs a CUDA card and skips without one. The repo's conftest imports jax,
 which the GPU machine lacks, so run it there as
@@ -17,7 +18,9 @@ import torch
 
 from popcorn_tpu_torch.nn import double_conv as A
 from popcorn_tpu_torch.nn import head as C
+from popcorn_tpu_torch.nn import quant
 from popcorn_tpu_torch.nn import up_block as B
+from popcorn_tpu_torch.nn.ops import conv3x3, conv_transpose_2x2, frozen_bn, pad_to_match
 
 TOL = dict(rtol=1e-4, atol=1e-4)
 
@@ -164,3 +167,106 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(dev):
     p3, bn3 = _dc_params(g, dev, 3, 8, 8)
     with pytest.raises(ValueError):
         A.double_conv(p3, bn3, _n(g, dev, 1, 8, 8, 3))
+
+
+# ----------------------------------------------------------- int8 kernels E-H
+
+
+def _amax_scale(t):
+    return t.abs().amax().clamp_min(1e-6) / quant.const(t, 127.0)
+
+
+def _dc_scales(p, bn, x):
+    """Static scales of one DoubleConv from its float run: input, y1, out."""
+    y1 = torch.relu(frozen_bn(conv3x3(x, p["conv1"]), bn["bn1"]))
+    return _amax_scale(x), _amax_scale(y1), _amax_scale(A.double_conv_plain(p, bn, x))
+
+
+def _up_case(g, dev, c1, cs, skip_hw, coarse_hw):
+    conv, bn = _dc_params(g, dev, cs + c1, 8, 8)
+    p = {"tconv": {"w": _n(g, dev, c1, 2, 2, c1, scale=0.3), "b": _n(g, dev, c1)}, "conv": conv}
+    x1 = _n(g, dev, 2, *coarse_hw, c1).relu()
+    x2 = _n(g, dev, 2, *skip_hw, cs).relu()
+    return p, bn, x1, x2
+
+
+UP_SHAPES = [(16, 16, (37, 19), (18, 9)), (8, 8, (37, 19), (18, 9)), (8, 8, (40, 22), (18, 9))]
+
+
+@pytest.mark.parametrize("float_out", [False, True], ids=["int8_out", "float_out"])
+@pytest.mark.parametrize("cin,cm,cout", [(2, 8, 8), (4, 8, 8), (8, 16, 16), (16, 16, 16)])
+def test_double_conv_qs_kernel_odd_batch(dev, cin, cm, cout, float_out):
+    g = torch.Generator().manual_seed(100 + cin)
+    p, bn = _dc_params(g, dev, cin, cm, cout)
+    x = _n(g, dev, 2, 37, 19, cin)
+    s_x, s_y1, s_out = _dc_scales(p, bn, x)
+    args = A.qs_args(p, bn, s_x, s_y1, None if float_out else s_out)
+    xq = quant.quantize_static(x, s_x)
+    before = A.launches_qs
+    got = A.double_conv_qs_cuda(*args, xq, float_out)
+    assert A.launches_qs == before + 1
+    ref = A.double_conv_qs_plain(*args, xq, float_out)
+    if float_out:
+        torch.testing.assert_close(got, ref, **TOL)
+    else:
+        assert got.dtype == torch.int8 and torch.equal(got, ref) and bool(ref.any())
+
+
+@pytest.mark.parametrize("float_out", [False, True], ids=["int8_out", "float_out"])
+@pytest.mark.parametrize("c1,cs,skip_hw,coarse_hw", UP_SHAPES)
+def test_up_block_qs_kernel_pad_ring(dev, c1, cs, skip_hw, coarse_hw, float_out):
+    g = torch.Generator().manual_seed(200 + c1 + skip_hw[0])
+    p, bn, x1, x2 = _up_case(g, dev, c1, cs, skip_hw, coarse_hw)
+    s_x1, s_x2 = _amax_scale(x1), _amax_scale(x2)
+    up = pad_to_match(conv_transpose_2x2(x1, p["tconv"]), x2)
+    y1 = torch.relu(frozen_bn(conv3x3(torch.cat([x2, up], -1), p["conv"]["conv1"]), bn["bn1"]))
+    s_out = None if float_out else _amax_scale(B.up_block_plain(p, bn, x1, x2))
+    args = B.qs_args(p, bn, s_x1, s_x2, _amax_scale(up), _amax_scale(y1), s_out)
+    x1q, x2q = quant.quantize_static(x1, s_x1), quant.quantize_static(x2, s_x2)
+    before = B.launches_qs
+    got = B.up_block_qs_cuda(*args, x1q, x2q, float_out)
+    assert B.launches_qs == before + 1
+    ref = B.up_block_qs_plain(*args, x1q, x2q, float_out)
+    if float_out:
+        torch.testing.assert_close(got, ref, **TOL)
+    else:
+        assert got.dtype == torch.int8 and torch.equal(got, ref) and bool(ref.any())
+
+
+@pytest.mark.parametrize("cin,cm,cout", [(2, 8, 8), (4, 8, 8), (8, 16, 16), (16, 16, 16)])
+def test_double_conv_q_kernel_odd_batch(dev, cin, cm, cout):
+    g = torch.Generator().manual_seed(300 + cin)
+    p, bn = _dc_params(g, dev, cin, cm, cout)
+    x = _n(g, dev, 2, 37, 19, cin)
+    args = A.q_args(p, bn)
+    before = A.launches_q
+    got = A.double_conv_q_cuda(*args, x)
+    assert A.launches_q == before + 1
+    torch.testing.assert_close(got, A.double_conv_q_plain(*args, x), **TOL)
+
+
+@pytest.mark.parametrize("c1,cs,skip_hw,coarse_hw", UP_SHAPES)
+def test_up_block_q_kernel_pad_ring(dev, c1, cs, skip_hw, coarse_hw):
+    g = torch.Generator().manual_seed(400 + c1 + skip_hw[0])
+    p, bn, x1, x2 = _up_case(g, dev, c1, cs, skip_hw, coarse_hw)
+    args = B.q_args(p, bn)
+    before = B.launches_q
+    got = B.up_block_q_cuda(*args, x1, x2)
+    assert B.launches_q == before + 1
+    torch.testing.assert_close(got, B.up_block_q_plain(*args, x1, x2), **TOL)
+
+
+def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
+    g = torch.Generator().manual_seed(5)
+    p, bn = _dc_params(g, dev, 2, 8, 8)
+    x = _n(g, dev, 1, 8, 8, 2)
+    s = quant.const(x, 0.05)
+    with pytest.raises(TypeError):  # kernel E takes int8 codes
+        A.double_conv_qs_cuda(*A.qs_args(p, bn, s, s, s), x, False)
+    with pytest.raises(ValueError):
+        A.double_conv_q_cuda(*A.q_args(p, bn), x.transpose(1, 2))
+    with pytest.raises(RuntimeError, match="requires a gradient"):
+        A.double_conv_q_cuda(*A.q_args(p, bn), x.clone().requires_grad_(True))
+    p3, bn3 = _dc_params(g, dev, 3, 8, 8)
+    with pytest.raises(ValueError):
+        A.double_conv_q(p3, bn3, _n(g, dev, 1, 8, 8, 3))
