@@ -4,12 +4,18 @@
 Phases, each printing one JSON line:
   1. device  — requires CUDA; the card's name and power limit, versions;
                TF32 off, so the plain versions are true float32;
-  2. build   — compiles every kernel of csrc/ with nvcc (all at once);
+  2. build   — compiles every kernel of csrc/ with nvcc (all at once),
+               then one build_report line a source: registers, spills
+               and shared memory of each kernel (ptxas -v), and for B and
+               D the tensor-core MMAs (HMMA) in their SASS, which must be
+               there;
   3. kernels — each kernel's wrapper at the main path's shapes (2048^2
                patch, real channel widths, the repo's DDA weights) held
                against its plain PyTorch version on the same inputs, with
                kernel, plain and library times and the least time the
-               card could take (bound). The int8 kernels E-H take their
+               card could take (bound; for A-D at float32 accuracy on the
+               tensor cores, with the CUDA-core figure beside it as
+               bound_fp32_ms). The int8 kernels E-H take their
                inputs from one member's streams on a seeded 2048^2 input
                (static scales calibrated on it for E and F), plus the
                builder's odd 519^2 blocks (G, H) and a w4a8 case (E); their
@@ -67,11 +73,23 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 on the CUDA
-# cores, dense INT8 on the tensor cores, and HBM3 bandwidth. Kernels A-D
-# run FP32 FMA on CUDA cores; the int8 kernels E-H are held to the card's
-# int8 peak, though this first version runs __dp4a on the CUDA cores.
+# cores, dense TF32 and INT8 on the tensor cores, and HBM3 bandwidth. The
+# float kernels A-D are held to the least time at float32 accuracy: three
+# dense TF32 passes a product (the 3xTF32 split, which B and D run), with
+# the FP32 CUDA-core figure beside it (bound_fp32_ms: what A and C, FMA
+# chains on the CUDA cores, are designed against). The int8 kernels E-H
+# are held to the card's int8 peak, though they run __dp4a on the CUDA
+# cores.
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
+TF32_PASSES = 3
 PEAK_INT8_OPS = 1979e12
+# what each float kernel's design runs on
+DESIGNED_AGAINST = {"double_conv": "fp32", "up_block": "tf32x3", "head": "fp32",
+                    "head_bwd": "tf32x3"}
+# the kernels that must hold tensor-core MMAs (HMMA in their SASS), by
+# source and the name of their kernel functions
+TENSOR_CORE_KERNELS = {"up_block": "up_block_kernel", "head_bwd": "head_bwd_kernel"}
 PEAK_HBM_BYTES = 3.35e12
 # no PyTorch call computes an int8 convolution (cuDNN's int8 path is not
 # reachable from torch), so the int8 kernels have no library yardstick
@@ -167,6 +185,17 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def float_bounds(kernel: str, flops: float, nbytes: float) -> dict:
+    """A float kernel's bounds: bound_ms at float32 accuracy on the tensor
+    cores (TF32_PASSES dense TF32 passes), bound_fp32_ms on the CUDA
+    cores, and the least operations time the summary adds up (ops_ms)."""
+    b_ms, by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
+    b32_ms, by32 = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    return {"bound_ms": b_ms, "bound_by": by, "bound_fp32_ms": b32_ms, "bound_fp32_by": by32,
+            "designed_against": DESIGNED_AGAINST[kernel],
+            "ops_ms": TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3}
+
+
 def profile_steps(case: str, run, step_ms: float, reps: int = 3) -> dict:
     """One torch.profiler trace over ``reps`` calls of the warmed ``run``:
     the device's busy time a call (the sum of its kernels and copies, which
@@ -254,6 +283,19 @@ def main() -> None:
 
     secs = cuda_lib.build(force=True)
     emit({"phase": "build", "sources": list(cuda_lib.KERNEL_SOURCES), "seconds": round(secs, 3)})
+    # registers, spills and shared memory of every kernel (ptxas -v), and
+    # the tensor-core MMAs in the SASS of B and D
+    for name in cuda_lib.KERNEL_SOURCES:
+        rec = {"phase": "build_report", "source": name,
+               "ptxas": cuda_lib.ptxas_usage(cuda_lib.build_logs[name])}
+        if name in TENSOR_CORE_KERNELS:
+            hmma = cuda_lib.sass_count(name, "HMMA")
+            rec["sass_hmma"] = hmma
+            mains = [v for f, v in hmma.items() if TENSOR_CORE_KERNELS[name] in f]
+            if not mains or min(mains) == 0:
+                emit(rec)
+                raise AssertionError(f"csrc/{name}.cu: a kernel holds no tensor-core MMA: {hmma}")
+        emit(rec)
 
     # --------------------------------------------------------------- 3. kernels
     import torch.nn.functional as F
@@ -318,7 +360,7 @@ def main() -> None:
     cases = []  # one per checked call: kernel, name, member-forward multiplicity
 
     def check_case(kernel, name, mult, kern_fn, plain_fn, lib_fn, flops, nbytes,
-                   peak=PEAK_FP32_FLOPS):
+                   peak=None):
         """Hold the kernel against its plain version (int8 outputs bit for
         bit, float ones at RTOL/ATOL), time both and the library call (None:
         there is none), and record the case."""
@@ -339,13 +381,17 @@ def main() -> None:
         k_ms = time_ms(kern_fn)
         p_ms = time_ms(plain_fn)
         l_ms = time_ms(lib_fn) if lib_fn is not None else None
-        b_ms, by = bound(flops, nbytes, peak)
+        if peak is None:  # a float kernel (A-D)
+            bounds = float_bounds(kernel, flops, nbytes)
+        else:
+            b_ms, by = bound(flops, nbytes, peak)
+            bounds = {"bound_ms": b_ms, "bound_by": by, "ops_ms": flops / peak * 1e3,
+                      "peak_ops_per_s": peak}
         case = {
             "phase": "kernel", "kernel": kernel, "case": name, "per_member_calls": mult,
             "max_abs_err": max_abs, "max_rel_err": max_rel, "rtol": RTOL, "atol": ATOL,
             "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            "bound_ms": b_ms, "bound_by": by, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
-            "peak_ops_per_s": peak,
+            **bounds, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         }
         if lib_fn is None:
             case["library_note"] = NO_INT8_LIBRARY
@@ -480,13 +526,13 @@ def main() -> None:
         k_ms = time_ms(lambda x=x, gout=gout: C.head_bwd_cuda(head, x, gout))
         p_ms = time_ms(lambda x=x, gout=gout: C.head_bwd_plain(head, x, gout))
         l_ms = time_ms(head_bwd_library(x, gout))
-        b_ms, by = bound(flops_px * npx, 4.0 * npx * (16 + 2 + 16) + wbytes * 2)
         case = {
             "phase": "kernel", "kernel": "head_bwd", "case": name, "per_member_calls": mult,
             **stats_d, "rtol": RTOL, "atol": ATOL, "norm_rtol": NORM_RTOL,
             "raw_norm_rtol": RAW_NORM_RTOL,
-            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms, "bound_ms": b_ms,
-            "bound_by": by, "gflop": flops_px * npx / 1e9,
+            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            **float_bounds("head_bwd", flops_px * npx, 4.0 * npx * (16 + 2 + 16) + wbytes * 2),
+            "gflop": flops_px * npx / 1e9,
             "mbytes": (4.0 * npx * (16 + 2 + 16) + wbytes * 2) / 1e6,
         }
         emit(case)
@@ -977,18 +1023,21 @@ def main() -> None:
         mine = [c for c in cases if c["kernel"] == kname]
         on_path = [c for c in mine if c["per_member_calls"] > 0]
         tot = lambda key: sum(c[key] * c["per_member_calls"] for c in on_path)  # noqa: E731
-        b_ops = sum(c["gflop"] * 1e9 * c["per_member_calls"] / c.get("peak_ops_per_s", PEAK_FP32_FLOPS)
-                    for c in on_path)
-        b_bytes = sum(c["mbytes"] * 1e6 * c["per_member_calls"] for c in on_path) / PEAK_HBM_BYTES
+        b_ops = sum(c["ops_ms"] * c["per_member_calls"] for c in on_path)
+        b_bytes = sum(c["mbytes"] * 1e6 * c["per_member_calls"] for c in on_path) / PEAK_HBM_BYTES * 1e3
         no_lib = any(c["library_ms"] is None for c in on_path)
-        kernels.append({
+        entry = {
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
             "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
             "library_ms": None if no_lib else tot("library_ms"),
-        })
+        }
+        if kname in DESIGNED_AGAINST:
+            entry["bound_fp32_ms"] = tot("bound_fp32_ms")
+            entry["designed_against"] = DESIGNED_AGAINST[kname]
+        kernels.append(entry)
     emit({"kernels": kernels})
     print(smi, flush=True)
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,5 +1,6 @@
-// conv_tile.cuh — shared-memory tile helpers for the fused UNet-block
-// kernels (double_conv.cu, up_block.cu).
+// conv_tile.cuh — shared-memory tile helpers for kernel A (double_conv.cu)
+// and, through conv_tile_i8.cuh, the int8 kernels E-H. Kernel B keeps its
+// own tensor-core tiling (up_block.cu).
 //
 // Layout: activations are NHWC float32; conv weights are HWIO
 // (3, 3, Cin, Cout), so the Cout values of one (tap, input channel) are

@@ -11,73 +11,160 @@
 // inside [oy, oy+2h) x [ox, ox+2w), and 0 outside, where
 // oy = (H-2h)//2 and ox = (W-2w)//2.
 //
-// What bounds it on the H100: arithmetic, as for kernel A: conv1 over the
-// Cs+Cu channels alone is 9*(Cs+Cu)*Cm multiply-adds per fine pixel. The
-// unfused block would also write the upsampled map, the concatenation and
-// the intermediate to device memory and read them back.
+// What bounds it on the H100: the two convs' arithmetic, 9*(Cs+Cu)*Cm +
+// 9*Cm*Cout multiply-adds a fine pixel (2,880 at up2, 1,728 at up1)
+// against 4*(Cs + Cu/4 + Cout) bytes read and written; the unfused block
+// would also write the upsampled map, the concatenation and y1 to device
+// memory and read them back. The first design ran the convs as per-pixel
+// FMA chains on the CUDA cores, each thread reading its pixel's channels
+// from a pixel-major tile: a warp's loads fell into one bank (up to 32-way
+// conflicts), and its 16x16 tile spent 27% more on the y1 ring and 56%
+// more on the transposed conv's halo.
 //
-// Design: one block of 256 threads owns a 16x16 output tile. It stages the
-// 20x20 skip tile and computes the 20x20 upsampled tile on the fly from the
-// coarse input into the same shared-memory tile, channels [skip | up] side
-// by side, so conv1 is a single Cs+Cu channel conv and no concatenation or
-// upsampled map is ever written to device memory. The DoubleConv tail
-// (conv_tile.cuh) then runs as in kernel A.
+// Design. conv1 and conv2 are implicit GEMMs on the tensor cores,
+// mma.sync.m16n8k8 in the 3xTF32 form (mma_tf32.cuh), float32-accurate:
+// M = 16 pixels of a tile row, N = 8 = Cm = Cout, K = 8 channels a step,
+// for each of the 9 taps. A block of 256 threads owns a TH x 30 output
+// tile (TH = 14 at 32 conv1 channels, 28 at 16, so that two blocks fit on
+// an SM); its y1 ring is (TH+2) x 32 (two M tiles a row) and its input
+// tile (TH+4) x 34. The skip channels arrive by cp.async; the upsampled
+// channels are computed beside them on the CUDA cores from the coarse
+// input (64-256 multiply-adds a pixel), so no concatenation or upsampled
+// map reaches device memory. Each pixel's channel vector is stored with
+// its 4-channel groups XOR-permuted by the pixel index (``chan``): the 32
+// lanes of an A fragment (8 pixels x 4 channels) then hit 32 distinct
+// banks at 8, 16 and 32 channels a pixel. Each warp runs two rows at a
+// time (four M tiles, eight independent MMA chains; conv1 at 32 channels
+// one row) and splits each weight fragment once for all its tiles.
 #include <cuda_runtime.h>
 
-#include "conv_tile.cuh"
+#include <cstdint>
+
+#include "mma_tf32.cuh"
 
 namespace popcorn {
 
-template <int C1, int CS, int CU, int CM, int COUT>
-constexpr int up_block_smem_floats() {
-  return align4((TH + 4) * (TW + 4) * (CS + CU)) + align4(C1 * 4 * CU) +
-         align4(CU) + tail_floats<CS + CU, CM, COUT>();
+constexpr int UB_THREADS = 256;
+constexpr int UB_TW = 30;  // output tile width
+constexpr int UB_RW = 32;  // y1 ring width: two M tiles of 16
+constexpr int UB_IW = 34;  // input tile width
+constexpr int UB_CM = 8;   // Cm = Cout = N of the MMA
+
+// output tile rows for CC conv1 input channels: two blocks an SM
+template <int CC>
+__host__ __device__ constexpr int ub_rows() {
+  return CC == 32 ? 14 : 28;
 }
 
-template <int C1, int CS, int CU, int CM, int COUT>
-__global__ void __launch_bounds__(NTHREADS)
+// The float offset of channel ch of tile pixel pix, at C (8, 16 or 32)
+// channels a pixel: groups of 4 channels XOR-permuted by the pixel bits
+// that the pixel stride leaves out of the bank index, so 8 consecutive
+// pixels x 4 channels fall into 32 distinct banks.
+template <int C>
+__device__ __forceinline__ int chan(int pix, int ch) {
+  constexpr int SH = C == 32 ? 0 : (C == 16 ? 1 : 2);
+  return pix * C + (ch ^ (((pix >> SH) & (C / 4 - 1)) << 2));
+}
+
+// d[m] += conv3x3 over C channels for the NM M tiles whose top-left tap
+// is tile pixel base[m] (16 pixels along a row of RS pixels), with HWIO
+// weights w (3, 3, C, 8): 9 taps x C/8 k-steps, each weight fragment
+// split once for the NM tiles, and two accumulator chains a tile
+// (mma_3xtf32's small and big terms; the caller adds them)
+template <int C, int RS, int NM>
+__device__ __forceinline__ void conv3x3_mma(float (&d)[NM][2][4], const float* src,
+                                            const int (&base)[NM], const float* w, int g,
+                                            int t) {
+#pragma unroll
+  for (int tap = 0; tap < 9; ++tap) {
+    const int off = (tap / 3) * RS + tap % 3;
+    const float* wk = w + tap * C * UB_CM;
+#pragma unroll
+    for (int k0 = 0; k0 < C; k0 += 8) {
+      uint32_t bb[2], bs[2];
+      load_b([wk](int k, int n) { return wk[k * UB_CM + n]; }, k0, 0, g, t, bb, bs);
+#pragma unroll
+      for (int m = 0; m < NM; ++m) {
+        const int p = base[m] + off;
+        uint32_t ab[4], as[4];
+        load_a([src, p](int r, int c) { return src[chan<C>(p + r, c)]; }, 0, k0, g, t, ab,
+               as);
+        mma_3xtf32(d[m][0], d[m][1], ab, as, bb, bs);
+      }
+    }
+  }
+}
+
+template <int C1, int CS, int CU>
+constexpr int up_block_smem_floats() {
+  constexpr int CC = CS + CU, TH = ub_rows<CC>();
+  return (TH + 4) * UB_IW * CC + (TH + 2) * UB_RW * UB_CM + 9 * CC * UB_CM +
+         9 * UB_CM * UB_CM + C1 * 4 * CU + CU + 4 * UB_CM;
+}
+
+template <int C1, int CS, int CU>
+__global__ void __launch_bounds__(UB_THREADS, 2)
     up_block_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
                     const float* __restrict__ wt, const float* __restrict__ bt,
                     const float* __restrict__ w1, const float* __restrict__ s1,
                     const float* __restrict__ t1, const float* __restrict__ w2,
                     const float* __restrict__ s2, const float* __restrict__ t2,
-                    float* __restrict__ out, int H, int W, int h, int w,
-                    int oy, int ox) {
-  constexpr int CC = CS + CU;
-  static_assert(CU % 4 == 0, "CU must be a multiple of 4");
+                    float* __restrict__ out, int H, int W, int h, int w, int oy,
+                    int ox) {
+  constexpr int CC = CS + CU, TH = ub_rows<CC>(), IH = TH + 4, RH = TH + 2;
+  constexpr int CM = UB_CM, NW = UB_THREADS / 32;
+  static_assert(CS % 4 == 0 && CU % 4 == 0 && (CC == 16 || CC == 32),
+                "conv1 takes 16 or 32 channels in groups of 4");
   extern __shared__ __align__(16) float smem[];
-  const int b = blockIdx.z;
-  const int y0 = blockIdx.y * TH;
-  const int x0 = blockIdx.x * TW;
-  float* tile = smem;
-  float* wts = tile + align4((TH + 4) * (TW + 4) * CC);
-  float* bts = wts + align4(C1 * 4 * CU);
-  float* tail = bts + align4(CU);
+  float* tile = smem;                     // IH x IW x CC, [skip | up]
+  float* ring = tile + IH * UB_IW * CC;   // RH x RW x CM, y1
+  float* w1s = ring + RH * UB_RW * CM;    // (3, 3, CC, CM)
+  float* w2s = w1s + 9 * CC * CM;         // (3, 3, CM, CM)
+  float* wts = w2s + 9 * CM * CM;         // (C1, 2, 2, CU)
+  float* bts = wts + C1 * 4 * CU;
+  float* aff = bts + CU;                  // s1, t1, s2, t2
+  const int b = blockIdx.z, tid = threadIdx.x;
+  const int y0 = blockIdx.y * TH, x0 = blockIdx.x * UB_TW;
 
-  load_tile<CS, CC>(tile, 0, x2 + (size_t)b * H * W * CS, H, W, y0 - 2,
-                    x0 - 2, TH + 4, TW + 4);
-  copy_to_shared(wts, wt, C1 * 4 * CU);
-  copy_to_shared(bts, bt, CU);
+  // the skip channels of the input tile (global origin y0-2, x0-2), zero
+  // outside the image: the SAME padding of conv1
+  const float* x2b = x2 + (size_t)b * H * W * CS;
+  for (int i = tid; i < IH * UB_IW * (CS / 4); i += UB_THREADS) {
+    const int pix = i / (CS / 4), c4 = i % (CS / 4);
+    const int gy = y0 - 2 + pix / UB_IW, gx = x0 - 2 + pix % UB_IW;
+    const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+    cp_async16(tile + chan<CC>(pix, 4 * c4),
+               in ? x2b + ((size_t)gy * W + gx) * CS + 4 * c4 : x2b, in ? 16 : 0);
+  }
+  cp_async_commit();
+  for (int i = tid; i < 9 * CC * CM; i += UB_THREADS) w1s[i] = __ldg(w1 + i);
+  for (int i = tid; i < 9 * CM * CM; i += UB_THREADS) w2s[i] = __ldg(w2 + i);
+  for (int i = tid; i < C1 * 4 * CU; i += UB_THREADS) wts[i] = __ldg(wt + i);
+  if (tid < CU) bts[tid] = __ldg(bt + tid);
+  if (tid < CM) {
+    aff[tid] = __ldg(s1 + tid);
+    aff[CM + tid] = __ldg(t1 + tid);
+    aff[2 * CM + tid] = __ldg(s2 + tid);
+    aff[3 * CM + tid] = __ldg(t2 + tid);
+  }
   __syncthreads();
 
-  // upsampled channels of the halo tile, computed from the coarse input
+  // the upsampled channels beside them, from the coarse input
   const float* x1b = x1 + (size_t)b * h * w * C1;
-  constexpr int HW4 = TW + 4;
-  for (int p = threadIdx.x; p < (TH + 4) * HW4; p += blockDim.x) {
-    const int gy = y0 - 2 + p / HW4;
-    const int gx = x0 - 2 + p % HW4;
-    const int uy = gy - oy;
-    const int ux = gx - ox;
-    float* dst = tile + p * CC + CS;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W && uy >= 0 && uy < 2 * h &&
-        ux >= 0 && ux < 2 * w) {
+  for (int pix = tid; pix < IH * UB_IW; pix += UB_THREADS) {
+    const int gy = y0 - 2 + pix / UB_IW, gx = x0 - 2 + pix % UB_IW;
+    const int uy = gy - oy, ux = gx - ox;
+    float acc[CU];
+#pragma unroll
+    for (int o = 0; o < CU; ++o) acc[o] = 0.f;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W && uy >= 0 && uy < 2 * h && ux >= 0 &&
+        ux < 2 * w) {
       const float* xp = x1b + ((size_t)(uy >> 1) * w + (ux >> 1)) * C1;
       const float4* wp =
           reinterpret_cast<const float4*>(wts + ((uy & 1) * 2 + (ux & 1)) * CU);
-      float acc[CU];
 #pragma unroll
-      for (int o = 0; o < CU; ++o) acc[o] = 0.f;
-#pragma unroll
+      for (int o = 0; o < CU; ++o) acc[o] = bts[o];
+#pragma unroll 4
       for (int c = 0; c < C1; ++c) {
         const float v = __ldg(xp + c);
         // Wt is (C1, 2, 2, CU): input channel c strides 4*CU floats
@@ -90,39 +177,96 @@ __global__ void __launch_bounds__(NTHREADS)
           acc[4 * o4 + 3] = fmaf(v, wv.w, acc[4 * o4 + 3]);
         }
       }
+    }
 #pragma unroll
-      for (int o = 0; o < CU; ++o) dst[o] = acc[o] + bts[o];
-    } else {
+    for (int o4 = 0; o4 < CU / 4; ++o4)
+      *reinterpret_cast<float4*>(tile + chan<CC>(pix, CS + 4 * o4)) =
+          make_float4(acc[4 * o4], acc[4 * o4 + 1], acc[4 * o4 + 2], acc[4 * o4 + 3]);
+  }
+  cp_async_wait<0>();
+  __syncthreads();
+
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
+
+  // conv1 on the ring (global origin y0-1, x0-1): a warp takes RPW ring
+  // rows at a time, two M tiles each (one row at 32 channels, where two
+  // would spill registers); y1 = 0 where the ring leaves the image
+  constexpr int RPW = CC == 32 ? 1 : 2;
+  static_assert(RH % RPW == 0 && TH % 2 == 0, "rows go to the warps in whole groups");
+  for (int ry = RPW * warp; ry < RH; ry += RPW * NW) {
+    float d[2 * RPW][2][4] = {};
+    int base[2 * RPW];
 #pragma unroll
-      for (int o = 0; o < CU; ++o) dst[o] = 0.f;
+    for (int m = 0; m < 2 * RPW; ++m) base[m] = (ry + m / 2) * UB_IW + 16 * (m % 2);
+    conv3x3_mma<CC, UB_IW>(d, tile, base, w1s, g, t);
+    const float sa = aff[2 * t], sb = aff[2 * t + 1];
+    const float ta = aff[CM + 2 * t], tb = aff[CM + 2 * t + 1];
+#pragma unroll
+    for (int m = 0; m < 2 * RPW; ++m) {
+      const int r = ry + m / 2, gy = y0 - 1 + r;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int rx = 16 * (m % 2) + g + 8 * hh, gx = x0 - 1 + rx;
+        const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
+        const float va = d[m][0][2 * hh] + d[m][1][2 * hh];
+        const float vb = d[m][0][2 * hh + 1] + d[m][1][2 * hh + 1];
+        *reinterpret_cast<float2*>(ring + chan<CM>(r * UB_RW + rx, 2 * t)) =
+            make_float2(in ? fmaxf(fmaf(va, sa, ta), 0.f) : 0.f,
+                        in ? fmaxf(fmaf(vb, sb, tb), 0.f) : 0.f);
+      }
     }
   }
-  double_conv_tail<CC, CM, COUT>(tile, tail, w1, s1, t1, w2, s2, t2,
-                                 out + (size_t)b * H * W * COUT, H, W, y0, x0);
+  __syncthreads();
+
+  // conv2 on the output tile: a warp takes two rows at a time, each as two
+  // M tiles at x 0 and 14 (the second stores x >= 16)
+  const float sa = aff[2 * CM + 2 * t], sb = aff[2 * CM + 2 * t + 1];
+  const float ta = aff[3 * CM + 2 * t], tb = aff[3 * CM + 2 * t + 1];
+  for (int ty = 2 * warp; ty < TH; ty += 2 * NW) {
+    if (y0 + ty >= H) break;
+    float d[4][2][4] = {};
+    const int base[4] = {ty * UB_RW, ty * UB_RW + 14, (ty + 1) * UB_RW,
+                         (ty + 1) * UB_RW + 14};
+    conv3x3_mma<CM, UB_RW>(d, ring, base, w2s, g, t);
+#pragma unroll
+    for (int m = 0; m < 4; ++m) {
+      const int gy = y0 + ty + m / 2;
+      float* orow = out + ((size_t)b * H + gy) * W * CM;
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int px = g + 8 * hh, gx = x0 + 14 * (m % 2) + px;
+        const float va = d[m][0][2 * hh] + d[m][1][2 * hh];
+        const float vb = d[m][0][2 * hh + 1] + d[m][1][2 * hh + 1];
+        if ((m % 2 == 0 || px >= 2) && gy < H && gx < W)
+          *reinterpret_cast<float2*>(orow + (size_t)gx * CM + 2 * t) =
+              make_float2(fmaxf(fmaf(va, sa, ta), 0.f), fmaxf(fmaf(vb, sb, tb), 0.f));
+      }
+    }
+  }
 }
 
-template <int C1, int CS, int CU, int CM, int COUT>
-int launch_up(const float* x1, const float* x2, const float* wt,
-              const float* bt, const float* w1, const float* s1,
-              const float* t1, const float* w2, const float* s2,
-              const float* t2, float* out, int B, int H, int W, int h, int w,
-              int oy, int ox, cudaStream_t stream) {
-  constexpr size_t smem =
-      sizeof(float) * up_block_smem_floats<C1, CS, CU, CM, COUT>();
-  auto kern = up_block_kernel<C1, CS, CU, CM, COUT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+template <int C1, int CS, int CU>
+int launch_up(const float* x1, const float* x2, const float* wt, const float* bt,
+              const float* w1, const float* s1, const float* t1, const float* w2,
+              const float* s2, const float* t2, float* out, int B, int H, int W, int h,
+              int w, int oy, int ox, cudaStream_t stream) {
+  constexpr int TH = ub_rows<CS + CU>();
+  constexpr size_t smem = sizeof(float) * up_block_smem_floats<C1, CS, CU>();
+  auto kern = up_block_kernel<C1, CS, CU>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((W + TW - 1) / TW, (H + TH - 1) / TH, B);
-  kern<<<grid, NTHREADS, smem, stream>>>(x1, x2, wt, bt, w1, s1, t1, w2, s2,
-                                         t2, out, H, W, h, w, oy, ox);
+  dim3 grid((W + UB_TW - 1) / UB_TW, (H + TH - 1) / TH, B);
+  kern<<<grid, UB_THREADS, smem, stream>>>(x1, x2, wt, bt, w1, s1, t1, w2, s2, t2, out, H,
+                                           W, h, w, oy, ox);
   return (int)cudaGetLastError();
 }
 
 }  // namespace popcorn
 
-// Returns a cudaError_t (0 on success), or -1 for a channel combination
-// that has no instantiation.
+// x2 16-byte aligned (the skip is staged by cp.async). Returns a
+// cudaError_t (0 on success), or -1 for a channel combination that has no
+// instantiation or a misaligned skip.
 extern "C" int popcorn_up_block_f32(const float* x1, const float* x2,
                                     const float* wt, const float* bt,
                                     const float* w1, const float* s1,
@@ -132,11 +276,11 @@ extern "C" int popcorn_up_block_f32(const float* x1, const float* x2,
                                     int w, int oy, int ox, int c1, int cs,
                                     int cu, int cm, int cout, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define POPCORN_UP(A, S, U, M, O)                                            \
-  if (c1 == A && cs == S && cu == U && cm == M && cout == O)                 \
-    return popcorn::launch_up<A, S, U, M, O>(x1, x2, wt, bt, w1, s1, t1, w2, \
-                                             s2, t2, out, B, H, W, h, w, oy,  \
-                                             ox, st);
+  if (reinterpret_cast<uintptr_t>(x2) % 16 != 0) return -1;
+#define POPCORN_UP(A, S, U, M, O)                                                 \
+  if (c1 == A && cs == S && cu == U && cm == M && cout == O)                      \
+    return popcorn::launch_up<A, S, U>(x1, x2, wt, bt, w1, s1, t1, w2, s2, t2, out, \
+                                       B, H, W, h, w, oy, ox, st);
   POPCORN_UP(16, 16, 16, 8, 8)
   POPCORN_UP(8, 8, 8, 8, 8)
 #undef POPCORN_UP

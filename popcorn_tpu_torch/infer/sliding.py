@@ -36,6 +36,7 @@ from ..nn.popcorn import (
     calibrate_member_scales,
     check_config,
     create_building_score,
+    fold_unpadded,
     popcorn_predict,
     quantize_static_int8,
 )
@@ -106,14 +107,18 @@ def make_patch_forward(mcfg: ModelConfig, consts: Tree, stats: NormStats, n_memb
         return calibrated["scales"]
 
     def members(member_params, x, score, mask, valid):
-        """The plain member fold (popcorn_tpu/infer/sliding.py:229-246):
-        members in order, float32 sums, then the mask multiply."""
+        """The member fold (popcorn_tpu/infer/sliding.py:175-246): members
+        in order, float32 sums, then the mask multiply. Each member runs
+        on the unpadded patch where the JAX fold does (its packed fold:
+        both streams, even sides), and pads by the reference's rule
+        elsewhere (its plain fold)."""
         m = mask.float() * valid.float()[:, None, None]
         zeros = torch.zeros(score.shape[:3], dtype=torch.float32, device=x.device)
         ds, dsq, ss, ssq = (zeros.clone() for _ in range(4))
         inputs = {"input": x, "building_counts": score}
+        padding = None if fold_unpadded(mcfg_member, x.shape[1], x.shape[2]) else False
         for params, scales in zip(member_params, member_scales(member_params, x)):
-            out = popcorn_predict(params, consts, inputs, mcfg_member, padding=False, scales=scales)
+            out = popcorn_predict(params, consts, inputs, mcfg_member, padding=padding, scales=scales)
             dense = out["popdensemap"].float()
             scale = out["scale"]
             scale = torch.zeros_like(dense) if scale is None else scale.float()

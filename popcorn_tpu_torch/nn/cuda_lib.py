@@ -16,11 +16,12 @@ from __future__ import annotations
 
 import ctypes
 import os
+import re
 import shutil
 import subprocess
 import threading
 import time
-from typing import Dict, Iterable
+from typing import Dict, Iterable, List
 
 import torch
 
@@ -31,17 +32,20 @@ KERNEL_SOURCES = (
     "double_conv", "up_block", "head", "head_bwd",
     "double_conv_qs", "up_block_qs", "double_conv_q", "up_block_q",
 )
-# The edge of the square output tile that one block of the UNet-block
-# kernels owns (csrc/conv_tile.cuh reads it as POPCORN_TILE). The dynamic
+# The edge of the square output tile that one block of kernels A and E-H
+# owns (csrc/conv_tile.cuh reads it as POPCORN_TILE). The dynamic
 # int8 kernels take one activation scale per tile, so their plain versions
 # (nn/quant.py) cut the image into the same tiles.
 TILE = 16
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", f"-DPOPCORN_TILE={TILE}",
+    "-shared", "-Xcompiler", "-fPIC", f"-DPOPCORN_TILE={TILE}", "-Xptxas", "-v",
 )
 
 _libs: Dict[str, ctypes.CDLL] = {}
+# what nvcc printed for each source built in this process (ptxas -v:
+# registers, spills and shared memory of every kernel instantiation)
+build_logs: Dict[str, str] = {}
 _lock = threading.Lock()
 
 
@@ -95,6 +99,7 @@ def _finish_build(name: str, proc: subprocess.Popen) -> None:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for csrc/{name}.cu:\n{out}")
     os.replace(proc.popcorn_tmp, proc.popcorn_lib)
+    build_logs[name] = out
 
 
 def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> float:
@@ -111,6 +116,47 @@ def build(names: Iterable[str] = KERNEL_SOURCES, force: bool = False) -> float:
             _finish_build(n, p)
             _libs.pop(n, None)
     return time.perf_counter() - t0
+
+
+def ptxas_usage(log: str) -> List[Dict[str, object]]:
+    """Per kernel function of a build log: registers, spill bytes (stores
+    and loads) and static shared memory, as ``ptxas -v`` reports them."""
+    out: List[Dict[str, object]] = []
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            out.append({"function": m.group(1)})
+            continue
+        if not out:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m:
+            out[-1]["spill_store_bytes"], out[-1]["spill_load_bytes"] = int(m.group(1)), int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[-1]["registers"] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[-1]["static_smem_bytes"] = int(sm.group(1)) if sm else 0
+    return out
+
+
+def sass_count(name: str, opcode: str) -> Dict[str, int]:
+    """How many instructions of ``opcode`` (e.g. "HMMA", the tensor-core
+    MMA) each kernel function of ``csrc/<name>.cu``'s built library holds,
+    from ``cuobjdump -sass``."""
+    tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", _paths(name)[1]], capture_output=True, text=True,
+                          check=True).stdout
+    counts: Dict[str, int] = {}
+    fn = None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = 0
+        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+            counts[fn] += 1
+    return counts
 
 
 def load(name: str) -> ctypes.CDLL:

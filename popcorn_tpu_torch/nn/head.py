@@ -10,7 +10,9 @@ TPU lane layouts of that same function). Kernel D is the backward of
 fused_head's custom VJP (pallas_head.py::_bwd_kernel), and ``head_train``
 is the ``torch.autograd.Function`` that pairs the two, as ``_head_flat``
 does: its forward is kernel C with two channels and saves only the input
-and the weights; its backward recomputes the activations in kernel D.
+and the weights; its backward recomputes the activations in kernel D,
+which runs its products on the tensor cores in the float32-accurate
+3xTF32 form.
 
 Each wrapper takes the plain version for a tensor on the CPU and launches
 its CUDA kernel for a tensor on the card; there is no fallback between
@@ -91,7 +93,8 @@ def head_apply(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
 bwd_launches = 0
 # kernel D's sizes, as csrc/head_bwd.cu fixes them: the flat gradient
 # vector [dW1 db1 ... dW4 db4], the pixels of a tile, and the most blocks
-# (two on each of the H100's 132 SMs), each writing one partial row
+# of its persistent grid (two on each of the H100's 132 SMs), each writing
+# one partial row
 BWD_NPART = sum(ci * co + co for ci, co in zip(DIMS[:-1], DIMS[1:]))  # 9538
 BWD_TILE = 64
 BWD_MAX_BLOCKS = 132 * 2
@@ -139,6 +142,9 @@ def head_bwd_cuda(
         )
     n = feats.numel() // DIMS[0]
     dev = feats.device
+    # the kernel stages x and g by 16-byte cp.async: a view that starts
+    # off that alignment is copied to a fresh (aligned) allocation
+    feats, g = (t if t.data_ptr() % 16 == 0 else t.clone() for t in (feats, g))
     dx = torch.empty_like(feats) if need_dx else None
     if n == 0:
         return dx, [torch.zeros_like(w) for w in wts]

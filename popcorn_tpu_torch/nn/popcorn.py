@@ -102,6 +102,15 @@ def builder_quantized(cfg: ModelConfig, train: bool = False) -> bool:
     return quantize_int8(cfg, train) and cfg.pallas_stream is True
 
 
+def fold_unpadded(cfg: ModelConfig, h: int, w: int) -> bool:
+    """Whether the eval fold runs a member on the patch as it is, with no
+    padding: the JAX package's packed fold, which it takes when both
+    streams run and H and W are even (choose_pack_factor > 1,
+    popcorn_tpu/infer/sliding.py:175-227). Elsewhere its plain fold pads
+    by the reference's rule (``add_padding(force=False)``)."""
+    return bool(cfg.s1 and cfg.s2) and h % 2 == 0 and w % 2 == 0
+
+
 def calibrate_member_scales(params: Tree, consts: Tree, x: torch.Tensor, cfg: ModelConfig) -> Tree:
     """Static int8 scales of one member's two UNet streams from a
     calibration batch ``x`` (the unpadded normalized input, as the fold
@@ -169,7 +178,7 @@ def sparsity_mask(
 @torch.no_grad()
 def popcorn_predict(
     params: Tree, consts: Tree, inputs: Dict[str, torch.Tensor], cfg: ModelConfig,
-    *, padding: bool = True, scales: Optional[Tree] = None,
+    *, padding: Optional[bool] = True, scales: Optional[Tree] = None,
 ) -> Dict[str, Any]:
     """The eval forward without autograd: every UNet block and the
     channel-0 head through their kernels on the card."""
@@ -183,7 +192,7 @@ def popcorn_forward(
     cfg: ModelConfig,
     *,
     train: bool = False,
-    padding: bool = True,
+    padding: Optional[bool] = True,
     encoder_no_grad: bool = False,
     unet_no_grad: bool = False,
     sparse: bool = False,
@@ -206,8 +215,11 @@ def popcorn_forward(
     (nn/head.py::head_train). Without ``train`` the whole model runs its
     kernels and the head emits channel 0 only: call it under no_grad
     (``popcorn_predict``), as the kernels refuse tensors that need a
-    gradient. ``sparse`` draws the sparsity mask from ``generator``
-    unless a precomputed ``mask`` (B,H,W) bool is given. ``scales``: the
+    gradient. ``padding``: True reflect-pads 14 px, False pads by the
+    reference's rule (``add_padding(force=False)``), None runs the input
+    as it is (the eval fold's choice, ``fold_unpadded``). ``sparse``
+    draws the sparsity mask from ``generator`` unless a precomputed
+    ``mask`` (B,H,W) bool is given. ``scales``: the
     member's static int8 scales (``calibrate_member_scales``), which the
     'int8s'/'w4a8' eval uses where it applies (module docstring).
 
@@ -237,7 +249,7 @@ def popcorn_forward(
     if not sparse:
         mask = None
 
-    xp, pad = add_padding(x, force=padding)
+    xp, pad = (x, (None,) * 4) if padding is None else add_padding(x, force=padding)
     x6 = reorder_to_dda(xp, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir)
     # the JAX package quantizes only in its packed engine, which it takes
     # for an unpadded input (popcorn_tpu/nn/popcorn.py:557-562)

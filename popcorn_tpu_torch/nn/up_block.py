@@ -5,7 +5,8 @@ skip x2's size, then a DoubleConv over [skip | up] (concat order of
 networks.py:318), on unpacked NHWC tensors.
 
 Kernel B (csrc/up_block.cu), float32: counterpart of
-popcorn_tpu/nn/pallas_conv.py::fused_up_block (``_up_block_kernel``).
+popcorn_tpu/nn/pallas_conv.py::fused_up_block (``_up_block_kernel``); its
+two convs run on the tensor cores in the float32-accurate 3xTF32 form.
 
 Kernel F (csrc/up_block_qs.cu), static int8: counterpart of
 ``fused_up_block_qs`` (``_up_block_kernel_qs``). int8 codes in (x1 at
@@ -95,6 +96,8 @@ def up_block_cuda(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torc
     out = torch.empty((b, hh, ww, cout), device=x2.device, dtype=torch.float32)
     if out.numel() == 0:
         return out
+    if x2.data_ptr() % 16:  # the kernel stages the skip by 16-byte cp.async
+        x2 = x2.clone()
     fn = cuda_lib.function(
         "up_block", "popcorn_up_block_f32",
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p],

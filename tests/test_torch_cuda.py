@@ -4,7 +4,12 @@ tiles, pad_to_match rings (also with a top/left offset), a pixel count no
 multiple of the head's block, the head backward (kernel D) at pixel
 counts of 1, one tile plus one and ragged shapes, the int8 kernels E-H at
 the same odd sizes (int8 outputs bit-equal to their plain versions), and
-the wrappers' refusals, including of tensors that need a gradient.
+the wrappers' refusals, including of tensors that need a gradient. The
+tensor-core tilings of kernels B (TH x 30 output tiles, TH 14 at 32 conv1
+channels and 28 at 16) and D (64-pixel tiles on a persistent grid of at
+most 264 blocks) are held at ragged last tiles in both dimensions, pad
+rings with a top/left offset, the builder's odd 519^2 -> 1038^2, one tile
+plus and minus one, and more tiles than blocks.
 
 Needs a CUDA card and skips without one. The repo's conftest imports jax,
 which the GPU machine lacks, so run it there as
@@ -77,6 +82,26 @@ def test_up_block_kernel_pad_ring(dev, c1, cs, skip_hw, coarse_hw):
     torch.testing.assert_close(got, B.up_block_plain(p, bn, x1, x2), **TOL)
 
 
+@pytest.mark.parametrize(
+    "c,skip_hw,coarse_hw",
+    [(16, (43, 67), (21, 33)), (8, (61, 91), (30, 45)), (16, (47, 64), (20, 29)),
+     (8, (57, 33), (25, 13)), (16, (3, 5), (1, 2)), (16, (1038, 1038), (519, 519)),
+     (8, (1038, 1038), (519, 519))],
+    ids=["up2_ragged", "up1_ragged", "up2_offset", "up1_offset", "tiny", "builder_odd",
+         "up1_odd"],
+)
+def test_up_block_kernel_tensor_core_tiling(dev, c, skip_hw, coarse_hw):
+    """Kernel B's TH x 30 tiles in both channel instantiations: ragged last
+    tiles in both dimensions, pad rings with oy/ox > 0, a single partial
+    tile, and the builder's odd 519^2 -> 1038^2."""
+    g = torch.Generator().manual_seed(800 + c + skip_hw[1])
+    p, bn, x1, x2 = _up_case(g, dev, c, c, skip_hw, coarse_hw)
+    before = B.launches
+    got = B.up_block(p, bn, x1, x2)
+    assert B.launches == before + 1
+    torch.testing.assert_close(got, B.up_block_plain(p, bn, x1, x2), **TOL)
+
+
 @pytest.mark.parametrize("n_out", [1, 2])
 def test_head_kernel_ragged(dev, n_out):
     g = torch.Generator().manual_seed(n_out)
@@ -120,6 +145,60 @@ def test_head_bwd_kernel_odd_sizes(dev, lead):
     # without dx the weight gradients are the same bits
     none, grads2 = C.head_bwd_cuda(head, feats, cot, need_dx=False)
     assert none is None
+    for a, b in zip(grads, grads2):
+        assert torch.equal(a, b)
+
+
+BOUNDARY = 1e-4
+
+
+def _relu_boundary(head, feats):
+    """Pixels with a hidden pre-activation within BOUNDARY of 0."""
+    h = feats.reshape(-1, 16)
+    near = torch.zeros(h.shape[0], dtype=torch.bool, device=h.device)
+    for k in C.HEAD_LAYERS[:-1]:
+        z = torch.addmm(head[k]["b"], h, head[k]["w"])
+        near |= (z.abs() < BOUNDARY).any(1)
+        h = torch.relu(z)
+    return near.reshape(feats.shape[:-1])
+
+
+@pytest.mark.parametrize("lead", [(2,), (63,), (64,), (264 * 64 * 3 + 5,)],
+                         ids=["n2", "tile_minus_1", "one_tile", "more_tiles_than_blocks"])
+def test_head_bwd_kernel_persistent_tiling(dev, lead):
+    """Kernel D's 64-pixel tiles and persistent grid: ragged last tiles
+    (zero-filled by cp.async), exactly one tile, and blocks that walk
+    several tiles each; the weight gradients are the same bits on a rerun
+    (per-block partials, ordered reduction, no atomics). As in
+    chip_smoke.py, the cotangent is zeroed on the pixels whose hidden
+    pre-activations come within BOUNDARY of 0: among 50k pixels some lie
+    within float32 rounding of it, and there two float32 forwards may take
+    different ReLU masks."""
+    g = torch.Generator().manual_seed(700 + lead[0])
+    head = _head(g, dev)
+    feats = _n(g, dev, *lead, 16)
+    cot = _n(g, dev, *lead, 2) * (~_relu_boundary(head, feats))[..., None]
+    dx, grads = C.head_bwd_cuda(head, feats, cot)
+    dx_ref, grads_ref = C.head_bwd_plain(head, feats, cot)
+    torch.testing.assert_close(dx, dx_ref, **TOL)
+    for got, ref in zip(grads, grads_ref):
+        assert float((got - ref).norm() / ref.norm().clamp_min(1e-30)) <= 1e-5
+    _, again = C.head_bwd_cuda(head, feats, cot)
+    for a, b in zip(grads, again):
+        assert torch.equal(a, b)
+
+
+def test_head_bwd_kernel_takes_a_misaligned_cotangent_view(dev):
+    """A contiguous view that starts one pixel into its storage (8 bytes
+    off the 16-byte cp.async alignment) gives the same result as a copy."""
+    g = torch.Generator().manual_seed(9)
+    head = _head(g, dev)
+    feats = _n(g, dev, 333, 16)
+    cot = _n(g, dev, 334, 2)[1:]
+    assert cot.is_contiguous() and cot.data_ptr() % 16 == 8
+    dx, grads = C.head_bwd_cuda(head, feats, cot)
+    dx2, grads2 = C.head_bwd_cuda(head, feats, cot.clone())
+    assert torch.equal(dx, dx2)
     for a, b in zip(grads, grads2):
         assert torch.equal(a, b)
 
