@@ -6,48 +6,60 @@ Phases, each printing one JSON line:
                TF32 off, so the plain versions are true float32;
   2. build   — compiles every kernel of csrc/ with nvcc (all at once),
                then one build_report line a source: registers, spills
-               and shared memory of each kernel (ptxas -v), and for B and
-               D the tensor-core MMAs (HMMA) in their SASS, which must be
-               there;
+               and shared memory of each kernel (ptxas -v), and for B, C
+               and D the tensor-core MMAs (HMMA) in their SASS, which
+               must be there in every instantiation;
   3. kernels — each kernel's wrapper at the main path's shapes (2048^2
                patch, real channel widths, the repo's DDA weights) held
                against its plain PyTorch version on the same inputs, with
                kernel, plain and library times and the least time the
                card could take (bound; for A-D at float32 accuracy on the
                tensor cores, with the CUDA-core figure beside it as
-               bound_fp32_ms). The int8 kernels E-H take their
+               bound_fp32_ms); kernels A, B and C again in their bf16
+               modes (the CLIs' default compute dtype), held to their
+               plain versions at BF16_ULP and bounded at the bf16 tensor
+               rate with 2-byte I/O. The int8 kernels E-H take their
                inputs from one member's streams on a seeded 2048^2 input
                (static scales calibrated on it for E and F), plus the
                builder's odd 519^2 blocks (G, H) and a w4a8 case (E); their
                int8 outputs must equal their plain versions' bit for bit;
   4. model   — popcorn_forward on a small input, kernels against the CPU
-               plain path;
+               plain path, in float32 and in bf16;
   5. main    — the Bag-of-POPCORN eval through the eval CLI: a synthetic
                2304x2560 region, 5 members (DDA weights + seeded heads),
-               patch 2048 / overlap 128, five GeoTIFFs and census metrics;
-               the launch counts of kernels A, B, C must rise during it;
-  6. quant   — the same eval with --quantize int8s, w4a8 and int8, then
-               int8 with pallas_stream=True (the builder quantized too)
-               through the Evaluator, then float again: finite GeoTIFFs,
-               every census r2 within QUANT_R2_BOUND of the float run, a
-               population map correlated >= QUANT_MAP_CORR with it, and
-               the launch counts of every kernel equal to QUANT_LAUNCHES
-               per patch; wall time and patches/s of each;
+               patch 2048 / overlap 128, five GeoTIFFs and census metrics,
+               at the CLI's default compute dtype (bf16) with the launch
+               counts of kernels A, B, C in their bf16 modes exactly
+               MAIN_LAUNCHES per patch, then once with --compute_dtype
+               float32 (the float32 modes, the same counts): the two maps
+               correlated >= DTYPE_MAP_CORR, AdjCensus r2 within
+               DTYPE_R2_TOL;
+  6. quant   — the same eval at the default dtype with --quantize int8s,
+               w4a8 and int8, then int8 with pallas_stream=True (the
+               builder quantized too) through the Evaluator, then
+               unquantized again: finite GeoTIFFs, every census r2 within
+               QUANT_R2_BOUND of the main run, a population map correlated
+               >= QUANT_MAP_CORR with it, and the launch counts of every
+               kernel equal to QUANT_LAUNCHES per patch; wall time and
+               patches/s of each;
   7. train_step — one training step (the repo's DDA weights, a seeded
                head, 2x192x160, a fixed sparsity mask) on the card against
                the CPU plain path in each memory tier (full gradient,
                encoder_no_grad, unet_no_grad): loss, every gradient leaf,
                frozen leaves exactly zero, the update, and launches of
-               kernels A-D on the card;
+               kernels A-D on the card; then the full tier in bf16, held
+               at the bf16 bounds (STEP_BF16_RTOL);
   8. train   — the train CLI on the same region with the verify skill's
-               flags (1 epoch, 6 weak samples): finite losses, moved head,
-               launches of A, B, C and D, last_model.pth, which the eval
-               CLI then turns into finite maps with AdjCensus r2 > 0.9.
-               Then steady step times: the epoch's batches again through
-               the trainer's step, each shape warmed once, and one
-               full-width step at 2x2048^2, with its memory; a
-               torch.profiler trace of each (train_profile lines) splits
-               the step by kernel and gives the device's idle share.
+               flags at its default dtype (bf16; 1 epoch, 6 weak
+               samples): finite losses, moved head, launches of A and B
+               (bf16), C and D (float32, as fused_head), last_model.pth,
+               which the eval CLI then turns into finite maps with
+               AdjCensus r2 > 0.9. Then steady step times: the epoch's
+               batches again through the trainer's step, each shape
+               warmed once, and one full-width step at 2x2048^2 in bf16
+               and in float32, with its memory; a torch.profiler trace of
+               each (train_profile lines) splits the step by kernel and
+               gives the device's idle share.
 Kernel D (the head backward) is checked in phase 3 at the train phase's
 bucket shape (2x1024x1024) and at 2x2048^2. Then the {"kernels": [...]}
 summary, the nvidia-smi name/power line, and last {"ok": true, "device":
@@ -84,12 +96,14 @@ PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = 3
 PEAK_INT8_OPS = 1979e12
-# what each float kernel's design runs on
-DESIGNED_AGAINST = {"double_conv": "fp32", "up_block": "tf32x3", "head": "fp32",
+PEAK_BF16_FLOPS = 989e12
+# what each float kernel's float32 mode is designed against
+DESIGNED_AGAINST = {"double_conv": "fp32", "up_block": "tf32x3", "head": "tf32x3",
                     "head_bwd": "tf32x3"}
 # the kernels that must hold tensor-core MMAs (HMMA in their SASS), by
 # source and the name of their kernel functions
-TENSOR_CORE_KERNELS = {"up_block": "up_block_kernel", "head_bwd": "head_bwd_kernel"}
+TENSOR_CORE_KERNELS = {"up_block": "up_block_kernel", "head": "head_kernel",
+                       "head_bwd": "head_bwd_kernel"}
 PEAK_HBM_BYTES = 3.35e12
 # no PyTorch call computes an int8 convolution (cuDNN's int8 path is not
 # reachable from torch), so the int8 kernels have no library yardstick
@@ -101,22 +115,40 @@ QUANT_R2_BOUND = 0.02
 QUANT_MAP_CORR = 0.99
 # launches per 2048^2 5-member patch: 2 streams x (3 DoubleConv + 2 Up) a
 # member and the builder's 6 + 4 (float unless pallas_stream), the head once
-# a member
+# a member; the float kernels in the default dtype's (bf16) modes
+MAIN_LAUNCHES = {"double_conv_bf16": 36, "up_block_bf16": 24, "head_bf16": 5}
 QUANT_LAUNCHES = {
-    "int8s": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv": 6, "up_block": 4, "head": 5},
-    "w4a8": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv": 6, "up_block": 4, "head": 5},
-    "int8": {"double_conv_q": 30, "up_block_q": 20, "double_conv": 6, "up_block": 4, "head": 5},
-    "int8+pallas_stream": {"double_conv_q": 36, "up_block_q": 24, "head": 5},
-    # the float eval again, last: the main phase's run is the process's
-    # first eval and pays its first-call costs, so the modes are timed
-    # between two float runs
-    "float": {"double_conv": 36, "up_block": 24, "head": 5},
+    "int8s": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv_bf16": 6,
+              "up_block_bf16": 4, "head_bf16": 5},
+    "w4a8": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv_bf16": 6,
+             "up_block_bf16": 4, "head_bf16": 5},
+    "int8": {"double_conv_q": 30, "up_block_q": 20, "double_conv_bf16": 6, "up_block_bf16": 4,
+             "head_bf16": 5},
+    "int8+pallas_stream": {"double_conv_q": 36, "up_block_q": 24, "head_bf16": 5},
+    # the unquantized eval again, last: the main phase's run is the
+    # process's first eval and pays its first-call costs, so the modes are
+    # timed between two unquantized runs
+    "unquantized": MAIN_LAUNCHES,
 }
+# main: the bf16 eval against the float32 one on the same members. bf16
+# keeps about 3 significant digits through two UNets and the head; the
+# JAX package's own bf16 maps correlate 0.9994 with its float32 maps
+# (tests/test_torch_bf16.py's region), and the census r2 of the adjusted
+# map moves by the map's rounding only
+DTYPE_MAP_CORR = 0.999
+DTYPE_R2_TOL = 1e-3
 # kernel vs plain version: float32 in both with different summation
 # orders (cuDNN/cuBLAS with TF32 off vs per-pixel FMA chains); observed
 # errors are ~1e-6 relative, so 1e-4 leaves room and still catches any
 # indexing or masking fault (those are O(1))
 RTOL = ATOL = 1e-4
+# the bf16 modes against their plain versions (which round in the same
+# places): |got - ref| <= BF16_ULP * (|ref| + max|ref|), about one bf16
+# ulp of the value and of the block's scale, since float32 sums taken in
+# another order can flip a bf16 rounding; fewer than BF16_DIFF_SHARE of the
+# values may differ at all (tests/test_torch_bf16.py's bound)
+BF16_ULP = 2.0 ** -7
+BF16_DIFF_SHARE = 0.01
 # kernel D's weight gradients are sums over up to 8.4M pixels, formed in
 # another order than cuBLAS's: held norm-relative, ||got-ref||/||ref||
 NORM_RTOL = 1e-5
@@ -141,6 +173,17 @@ RAW_NORM_RTOL = 3e-3
 # norm-relative 1e-2 (2.7e-3 seen on an H100, gradients 6.2e-5): a leaf
 # whose gradient has the wrong sign moves by twice its step and fails it.
 STEP_RTOL, STEP_UPDATE_RTOL = 1e-4, 1e-2
+# the bf16 train step on the card against the CPU's: both round to bf16
+# after every op of the trainable UNets (cuDNN's bf16 convs against the
+# CPU's) and in the frozen blocks' kernels, so their gradients agree to
+# bf16 precision: loss and popcount at rtol 1e-2, the gradient leaves as
+# one vector at relative L2 1e-2 and correlation >= 0.999
+# (tests/test_torch_bf16.py's bound against the JAX step)
+STEP_BF16_RTOL, STEP_BF16_CORR = 1e-2, 0.999
+# the bf16 forward on the card against the CPU's (both the kernels'
+# rounding): tests/test_torch_bf16.py's bound against the JAX package's
+# Pallas-route semantics
+MODEL_BF16_CORR = 0.9999
 KERNEL_REPS = 10
 # the train phase's larger batch: its 6 weak samples of the seeded
 # 2304x2560 region's 4x6 admin grid come in the buckets 2x1024x1024 and
@@ -235,8 +278,14 @@ def profile_steps(case: str, run, step_ms: float, reps: int = 3) -> dict:
 
 
 def compare(got, ref, name: str):
+    """A float kernel's output against its plain version's: float32 at
+    RTOL/ATOL, bf16 at the BF16_ULP bound. Returns the max abs and
+    relative errors and the share of values that differ."""
     import torch
 
+    bf16 = got.dtype == torch.bfloat16
+    if ref.dtype != got.dtype:
+        raise AssertionError(f"{name}: dtype {got.dtype} vs {ref.dtype}")
     got, ref = got.float(), ref.float()
     if got.shape != ref.shape:
         raise AssertionError(f"{name}: shape {tuple(got.shape)} vs {tuple(ref.shape)}")
@@ -244,11 +293,17 @@ def compare(got, ref, name: str):
         raise AssertionError(f"{name}: non-finite kernel output")
     err = (got - ref).abs()
     max_abs = float(err.max())
-    max_rel = max_abs / max(float(ref.abs().max()), 1e-30)
-    ok = bool((err <= ATOL + RTOL * ref.abs()).all())
-    if not ok:
+    ref_max = float(ref.abs().max())
+    max_rel = max_abs / max(ref_max, 1e-30)
+    share = float((got != ref).float().mean())
+    if bf16:
+        ok = bool((err <= BF16_ULP * (ref.abs() + ref_max)).all()) and share < BF16_DIFF_SHARE
+        if not ok:
+            raise AssertionError(f"{name}: max_abs_err {max_abs}, {share:.4%} of the values "
+                                 f"differ, beyond the bf16 bound {BF16_ULP} x (|ref| + max|ref|)")
+    elif not bool((err <= ATOL + RTOL * ref.abs()).all()):
         raise AssertionError(f"{name}: max_abs_err {max_abs} beyond atol {ATOL} + rtol {RTOL}")
-    return max_abs, max_rel
+    return max_abs, max_rel, share
 
 
 def main() -> None:
@@ -311,42 +366,49 @@ def main() -> None:
         return x.clamp_min(0) if relu else x
 
     def dc_library(p, bn, x):
+        """The block as cuDNN convs and elementwise ops in x's dtype."""
+        dt = x.dtype
         xc = x.permute(0, 3, 1, 2).contiguous()
-        w1 = p["conv1"]["w"].permute(3, 2, 0, 1).contiguous()
-        w2 = p["conv2"]["w"].permute(3, 2, 0, 1).contiguous()
-        sc1, sh1 = bn["bn1"]["scale"][:, None, None], bn["bn1"]["shift"][:, None, None]
-        sc2, sh2 = bn["bn2"]["scale"][:, None, None], bn["bn2"]["shift"][:, None, None]
+        w1 = p["conv1"]["w"].permute(3, 2, 0, 1).contiguous().to(dt)
+        w2 = p["conv2"]["w"].permute(3, 2, 0, 1).contiguous().to(dt)
+        b1, b2 = p["conv1"]["b"].to(dt), p["conv2"]["b"].to(dt)
+        sc1, sh1 = (bn["bn1"][k][:, None, None].to(dt) for k in ("scale", "shift"))
+        sc2, sh2 = (bn["bn2"][k][:, None, None].to(dt) for k in ("scale", "shift"))
 
         def run():
-            y = torch.relu(F.conv2d(xc, w1, p["conv1"]["b"], padding=1) * sc1 + sh1)
-            return torch.relu(F.conv2d(y, w2, p["conv2"]["b"], padding=1) * sc2 + sh2)
+            y = torch.relu(F.conv2d(xc, w1, b1, padding=1) * sc1 + sh1)
+            return torch.relu(F.conv2d(y, w2, b2, padding=1) * sc2 + sh2)
 
         return run
 
     def up_library(p, bn, x1, x2):
+        dt = x2.dtype
         x1c, x2c = x1.permute(0, 3, 1, 2).contiguous(), x2.permute(0, 3, 1, 2).contiguous()
-        wt = p["tconv"]["w"].permute(0, 3, 1, 2).contiguous()  # (I,2,2,O) -> (I,O,2,2)
+        wt = p["tconv"]["w"].permute(0, 3, 1, 2).contiguous().to(dt)  # (I,2,2,O) -> (I,O,2,2)
+        bt = p["tconv"]["b"].to(dt)
         dcp = p["conv"]
-        w1 = dcp["conv1"]["w"].permute(3, 2, 0, 1).contiguous()
-        w2 = dcp["conv2"]["w"].permute(3, 2, 0, 1).contiguous()
-        sc1, sh1 = bn["bn1"]["scale"][:, None, None], bn["bn1"]["shift"][:, None, None]
-        sc2, sh2 = bn["bn2"]["scale"][:, None, None], bn["bn2"]["shift"][:, None, None]
+        w1 = dcp["conv1"]["w"].permute(3, 2, 0, 1).contiguous().to(dt)
+        w2 = dcp["conv2"]["w"].permute(3, 2, 0, 1).contiguous().to(dt)
+        b1, b2 = dcp["conv1"]["b"].to(dt), dcp["conv2"]["b"].to(dt)
+        sc1, sh1 = (bn["bn1"][k][:, None, None].to(dt) for k in ("scale", "shift"))
+        sc2, sh2 = (bn["bn2"][k][:, None, None].to(dt) for k in ("scale", "shift"))
 
         def run():
-            up = F.conv_transpose2d(x1c, wt, p["tconv"]["b"], stride=2)
+            up = F.conv_transpose2d(x1c, wt, bt, stride=2)
             dy, dx = x2c.shape[2] - up.shape[2], x2c.shape[3] - up.shape[3]
             if dy or dx:
                 up = F.pad(up, (dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
             y = torch.cat([x2c, up], 1)
-            y = torch.relu(F.conv2d(y, w1, dcp["conv1"]["b"], padding=1) * sc1 + sh1)
-            return torch.relu(F.conv2d(y, w2, dcp["conv2"]["b"], padding=1) * sc2 + sh2)
+            y = torch.relu(F.conv2d(y, w1, b1, padding=1) * sc1 + sh1)
+            return torch.relu(F.conv2d(y, w2, b2, padding=1) * sc2 + sh2)
 
         return run
 
     def head_library(x, n_out):
+        dt = x.dtype
         x2 = x.reshape(-1, 16)
-        w = [head[k]["w"] for k in C.HEAD_LAYERS]
-        b = [head[k]["b"] for k in C.HEAD_LAYERS]
+        w = [head[k]["w"].to(dt) for k in C.HEAD_LAYERS]
+        b = [head[k]["b"].to(dt) for k in C.HEAD_LAYERS]
         w4, b4 = w[3][:, :n_out].contiguous(), b[3][:n_out].contiguous()
 
         def run():
@@ -375,21 +437,25 @@ def main() -> None:
             if n_diff:
                 raise AssertionError(f"{name}: {n_diff} int8 codes differ from the plain version's")
             max_abs = max_rel = 0.0
+            share = 0.0
         else:
-            max_abs, max_rel = compare(got, ref, name)
+            max_abs, max_rel, share = compare(got, ref, name)
+        bf16 = got.dtype == torch.bfloat16
         del got, ref
         k_ms = time_ms(kern_fn)
         p_ms = time_ms(plain_fn)
         l_ms = time_ms(lib_fn) if lib_fn is not None else None
-        if peak is None:  # a float kernel (A-D)
+        if peak is None:  # a float32 kernel (A-D)
             bounds = float_bounds(kernel, flops, nbytes)
         else:
             b_ms, by = bound(flops, nbytes, peak)
             bounds = {"bound_ms": b_ms, "bound_by": by, "ops_ms": flops / peak * 1e3,
                       "peak_ops_per_s": peak}
+        tol = ({"bf16_ulp": BF16_ULP, "diff_share_max": BF16_DIFF_SHARE} if bf16
+               else {"rtol": RTOL, "atol": ATOL})
         case = {
             "phase": "kernel", "kernel": kernel, "case": name, "per_member_calls": mult,
-            "max_abs_err": max_abs, "max_rel_err": max_rel, "rtol": RTOL, "atol": ATOL,
+            "max_abs_err": max_abs, "max_rel_err": max_rel, "diff_share": share, **tol,
             "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
             **bounds, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
         }
@@ -408,19 +474,22 @@ def main() -> None:
         ("down2", unet["sar"]["down2"], unet_bn["sar"]["down2"], (1, P // 4, P // 4, 16), True, 2),
         ("down2_builder_odd", unet["opt"]["down2"], unet_bn["opt"]["down2"], (1, 519, 519, 16), True, 0),
     ]
+    bf16 = torch.bfloat16
     for name, p, bn, shape, relu, mult in dc_cases:
-        x = rand(*shape, relu=relu)
+        x32 = rand(*shape, relu=relu)
         cin, cm, cout = shape[-1], p["conv1"]["w"].shape[3], p["conv2"]["w"].shape[3]
         npx = shape[0] * shape[1] * shape[2]
         flops = 2.0 * npx * 9 * (cin * cm + cm * cout)
-        nbytes = 4.0 * (npx * (cin + cout) + 9 * (cin * cm + cm * cout) + 2 * (cm + cout))
-        check_case(
-            "double_conv", f"{name} {'x'.join(map(str, shape))}->{cout}", mult,
-            lambda p=p, bn=bn, x=x: A.double_conv_cuda(p, bn, x),
-            lambda p=p, bn=bn, x=x: A.double_conv_plain(p, bn, x),
-            dc_library(p, bn, x), flops, nbytes,
-        )
-        del x
+        for x, esz, kernel, peak in ((x32, 4, "double_conv", None),
+                                     (x32.to(bf16), 2, "double_conv_bf16", PEAK_BF16_FLOPS)):
+            nbytes = esz * (npx * (cin + cout) + 9 * (cin * cm + cm * cout)) + 4.0 * 2 * (cm + cout)
+            check_case(
+                kernel, f"{name} {'x'.join(map(str, shape))}->{cout}", mult,
+                lambda p=p, bn=bn, x=x: A.double_conv_cuda(p, bn, x),
+                lambda p=p, bn=bn, x=x: A.double_conv_plain(p, bn, x),
+                dc_library(p, bn, x), flops, nbytes, peak,
+            )
+        del x, x32
 
     # kernel B: up2 (coarse 512^2 x16 + skip 1024^2 x16) and up1
     up_cases = [
@@ -428,35 +497,45 @@ def main() -> None:
         ("up1", unet["sar"]["up1"], unet_bn["sar"]["up1"], (1, P // 2, P // 2, 8), (1, P, P, 8)),
     ]
     for name, p, bn, s1, s2 in up_cases:
-        x1, x2 = rand(*s1, relu=True), rand(*s2, relu=True)
+        x1_32, x2_32 = rand(*s1, relu=True), rand(*s2, relu=True)
         c1, cs = s1[-1], s2[-1]
         cu = p["tconv"]["w"].shape[3]
         cm, cout = p["conv"]["conv1"]["w"].shape[3], p["conv"]["conv2"]["w"].shape[3]
         npx = s2[0] * s2[1] * s2[2]
         flops = 2.0 * npx * (c1 * cu + 9 * ((cs + cu) * cm + cm * cout))
-        nw = c1 * 4 * cu + cu + 9 * ((cs + cu) * cm + cm * cout) + 2 * (cm + cout)
-        nbytes = 4.0 * (x1.numel() + x2.numel() + npx * cout + nw)
-        check_case(
-            "up_block", f"{name} {'x'.join(map(str, s1))}+{'x'.join(map(str, s2))}->{cout}", 2,
-            lambda p=p, bn=bn, x1=x1, x2=x2: B.up_block_cuda(p, bn, x1, x2),
-            lambda p=p, bn=bn, x1=x1, x2=x2: B.up_block_plain(p, bn, x1, x2),
-            up_library(p, bn, x1, x2), flops, nbytes,
-        )
-        del x1, x2
+        nw = c1 * 4 * cu + 9 * ((cs + cu) * cm + cm * cout)
+        for x1, x2, esz, kernel, peak in (
+            (x1_32, x2_32, 4, "up_block", None),
+            (x1_32.to(bf16), x2_32.to(bf16), 2, "up_block_bf16", PEAK_BF16_FLOPS),
+        ):
+            nbytes = esz * (x1.numel() + x2.numel() + npx * cout + nw) + 4.0 * (cu + 2 * (cm + cout))
+            check_case(
+                kernel, f"{name} {'x'.join(map(str, s1))}+{'x'.join(map(str, s2))}->{cout}", 2,
+                lambda p=p, bn=bn, x1=x1, x2=x2: B.up_block_cuda(p, bn, x1, x2),
+                lambda p=p, bn=bn, x1=x1, x2=x2: B.up_block_plain(p, bn, x1, x2),
+                up_library(p, bn, x1, x2), flops, nbytes, peak,
+            )
+        del x1, x2, x1_32, x2_32
 
-    # kernel C: channel 0 (the member fold) and 2 channels, 2048^2 features
+    # kernel C: channel 0 (the member fold) at 2048^2 in float32 and bf16,
+    # and the training forward's 2 channels at the train bucket
     feats = rand(1, P, P, 16, relu=True)
-    npx = P * P
-    for n_out, mult in ((1, 1), (2, 0)):
+    for x, n_out, mult, kernel, esz, peak in (
+        (feats, 1, 1, "head", 4, None),
+        (feats.to(bf16), 1, 1, "head_bf16", 2, PEAK_BF16_FLOPS),
+        (rand(*TRAIN_BUCKET, 16, relu=True), 2, 0, "head", 4, None),
+    ):
+        npx = x.numel() // 16
         flops = 2.0 * npx * (16 * 64 + 64 * 64 * 2 + 64 * n_out)
-        nbytes = 4.0 * (npx * (16 + n_out) + 16 * 64 + 2 * 64 * 64 + 64 * 2 + 3 * 64 + 2)
+        nbytes = (esz * (npx * (16 + n_out) + 16 * 64 + 2 * 64 * 64 + 64 * 2)
+                  + 4.0 * (3 * 64 + 2))
         check_case(
-            "head", f"head_{n_out}ch 1x{P}x{P}x16->{n_out}", mult,
-            lambda n_out=n_out: C.head_cuda(head, feats, n_out),
-            lambda n_out=n_out: C.head_plain(head, feats, n_out),
-            head_library(feats, n_out), flops, nbytes,
+            kernel, f"head_{n_out}ch {'x'.join(map(str, x.shape))}->{n_out}", mult,
+            lambda x=x, n_out=n_out: C.head_cuda(head, x, n_out),
+            lambda x=x, n_out=n_out: C.head_plain(head, x, n_out),
+            head_library(x, n_out), flops, nbytes, peak,
         )
-    del feats
+    del feats, x
 
     # kernel D: the head backward at the train phase's bucket and at a
     # 2x2048^2 step (8.4M px, under limit1's 9M: the full-gradient tier)
@@ -646,6 +725,10 @@ def main() -> None:
     from popcorn_tpu_torch.config import ModelConfig
     from popcorn_tpu_torch.nn.popcorn import popcorn_forward
 
+    import dataclasses
+
+    import numpy as np
+
     mcfg = ModelConfig(biasinit=0.9407)
     params, consts = load_popcorn_from_dda(mcfg, head_seed=1)
     xs = torch.randn(1, 192, 160, 6, generator=torch.Generator().manual_seed(1))
@@ -653,16 +736,29 @@ def main() -> None:
     got = popcorn_forward(
         to_torch(params, dev), to_torch(consts, dev), {"input": xs.to(dev)}, mcfg, padding=False
     )
-    m_abs, m_rel = compare(got["popdensemap"].cpu(), ref["popdensemap"], "model popdensemap")
+    m_abs, m_rel, _ = compare(got["popdensemap"].cpu(), ref["popdensemap"], "model popdensemap")
     pc_rel = abs(float(got["popcount"][0]) - float(ref["popcount"][0])) / abs(float(ref["popcount"][0]))
     if not pc_rel <= 2e-4:
         raise AssertionError(f"model popcount relative error {pc_rel}")
+    # bf16: the kernels' bf16 modes against the plain versions on the CPU,
+    # which round in the same places; sums in another order can flip a
+    # rounding, and a flip travels through the later blocks
+    mcfg_bf = dataclasses.replace(mcfg, compute_dtype="bfloat16")
+    ref_bf = popcorn_forward(params, consts, {"input": xs}, mcfg_bf, padding=False)
+    got_bf = popcorn_forward(to_torch(params, dev), to_torch(consts, dev), {"input": xs.to(dev)},
+                             mcfg_bf, padding=False)
+    a = ref_bf["popdensemap"].double().ravel()
+    b = got_bf["popdensemap"].cpu().double().ravel()
+    bf_rel = float((b - a).norm() / a.norm())
+    bf_corr = float(np.corrcoef(a.numpy(), b.numpy())[0, 1])
     emit({"phase": "model", "input": [1, 192, 160, 6], "max_abs_err": m_abs,
-          "max_rel_err": m_rel, "popcount_rel_err": pc_rel})
+          "max_rel_err": m_rel, "popcount_rel_err": pc_rel, "bf16_map_rel_l2": bf_rel,
+          "bf16_map_corr": bf_corr, "bf16_rel_l2_max": STEP_BF16_RTOL,
+          "bf16_corr_min": MODEL_BF16_CORR})
+    if not (bf_rel <= STEP_BF16_RTOL and bf_corr >= MODEL_BF16_CORR):
+        raise AssertionError(f"model bf16 popdensemap: relative L2 {bf_rel}, correlation {bf_corr}")
 
     # ------------------------------------------------------------------ 5. main
-    import numpy as np
-
     from popcorn_tpu_torch.cli import eval as eval_cli
     from popcorn_tpu_torch.compat.weights import save_popcorn_checkpoint
     from popcorn_tpu_torch.data.synthetic import make_synthetic_region
@@ -702,10 +798,11 @@ def main() -> None:
             save_popcorn_checkpoint(members[-1], params, consts)
         setup_s = time.perf_counter() - t0
 
-        counters = {"double_conv": (A, "launches"), "up_block": (B, "launches"),
-                    "head": (C, "launches"), "double_conv_qs": (A, "launches_qs"),
-                    "up_block_qs": (B, "launches_qs"), "double_conv_q": (A, "launches_q"),
-                    "up_block_q": (B, "launches_q")}
+        counters = {"double_conv": (A, "launches"), "double_conv_bf16": (A, "launches_bf16"),
+                    "up_block": (B, "launches"), "up_block_bf16": (B, "launches_bf16"),
+                    "head": (C, "launches"), "head_bf16": (C, "launches_bf16"),
+                    "double_conv_qs": (A, "launches_qs"), "up_block_qs": (B, "launches_qs"),
+                    "double_conv_q": (A, "launches_q"), "up_block_q": (B, "launches_q")}
 
         def reset_launches():
             for mod, attr in counters.values():
@@ -714,78 +811,100 @@ def main() -> None:
         def read_launches():
             return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
 
-        reset_launches()
-        torch.cuda.reset_peak_memory_stats(dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = eval_cli.main(["--data_root", data, *eval_flags, "-r", *members])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = {"double_conv": A.launches, "up_block": B.launches, "head": C.launches}
-        peak = torch.cuda.max_memory_allocated(dev)
-        if not all(v > 0 for v in launches.values()):
-            raise AssertionError(f"a kernel was not launched on the main path: {launches}")
-        r2 = check_eval(stats, os.path.join(tmp, "eval_outputs_ensemble_*"))
         n_patches = 4  # patch grid of a 2304x2560 region at 2048/128
-        emit({
-            "phase": "main", "members": 5, "patch": 2048, "overlap": 128,
-            "region": [2304, 2560], "patches": n_patches, "setup_s": setup_s,
-            "wall_s": wall, "patches_per_s": n_patches / wall,
-            "peak_mem_bytes": peak, "launches": launches,
-            "adj_coarse_r2": r2, "main_coarse_r2": stats["Population_MainCensus_rwa_coarse/r2"],
-        })
 
-        # ---------------------------------------------------------------- 6. quant
-        import dataclasses
+        def run_eval(tag, extra=(), want=None, config=None):
+            """One eval of the 5 members, from a folder of links to them
+            where it writes its outputs: through the eval CLI with the
+            ``extra`` flags, or through the Evaluator with ``config`` (a
+            function of the CLI's ModelConfig). Launch counts are checked
+            against ``want`` per patch. Returns the stats, wall seconds,
+            launches and the output folder's glob."""
+            from popcorn_tpu_torch.cli.args import eval_config_from_args, eval_parser, model_config_from_args
+            from popcorn_tpu_torch.config import DataPaths
+            from popcorn_tpu_torch.infer.evaluator import Evaluator
 
-        from popcorn_tpu_torch.cli.args import eval_config_from_args, eval_parser, model_config_from_args
-        from popcorn_tpu_torch.config import DataPaths
-        from popcorn_tpu_torch.infer.evaluator import Evaluator
-
-        def read_map(folder_glob):
-            with GeoTIFF(os.path.join(glob.glob(folder_glob)[0], "rwa_predictions.tif")) as gt:
-                return gt.read(1, squeeze=True).astype(np.float64)
-
-        float_map = read_map(os.path.join(tmp, "eval_outputs_ensemble_*"))
-        quant_launches = {}
-        for mode, want in QUANT_LAUNCHES.items():
-            # each mode's members in a folder of their own, where its
-            # Evaluator writes its outputs
-            mdir = os.path.join(tmp, f"quant_{mode}")
+            mdir = os.path.join(tmp, tag)
             os.makedirs(mdir)
             links = []
             for m in members:
                 links.append(os.path.join(mdir, os.path.basename(m)))
                 os.symlink(m, links[-1])
-            argv = ["--data_root", data, *eval_flags, "-r", *links]
+            argv = ["--data_root", data, *eval_flags, "-r", *links, *extra]
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            if mode == "int8+pallas_stream":
-                # the JAX package has no CLI flag for it: the config through
-                # the Evaluator, which runs run_sliding_inference with it
-                a = eval_parser().parse_args(argv)
-                mcfg_q = dataclasses.replace(model_config_from_args(a), quantize="int8", pallas_stream=True)
-                stats_q = Evaluator(DataPaths(data), mcfg_q, eval_config_from_args(a),
-                                    device=dev).test_target(save=True)
+            if config is None:
+                out = eval_cli.main(argv)
             else:
-                stats_q = eval_cli.main(argv if mode == "float" else [*argv, "--quantize", mode])
+                a = eval_parser().parse_args(argv)
+                out = Evaluator(DataPaths(data), config(model_config_from_args(a)),
+                                eval_config_from_args(a), device=dev).test_target(save=True)
             torch.cuda.synchronize()
-            q_wall = time.perf_counter() - t0
+            secs = time.perf_counter() - t0
             got_l = read_launches()
             want_l = {k: want.get(k, 0) * n_patches for k in counters}
             if got_l != want_l:
-                raise AssertionError(f"quant {mode}: launches {got_l}, expected {want_l}")
-            quant_launches[mode] = got_l
+                raise AssertionError(f"eval {tag}: launches {got_l}, expected {want_l}")
             folder_glob = os.path.join(mdir, "eval_outputs_ensemble_*")
-            q_r2 = check_eval(stats_q, folder_glob)
+            check_eval(out, folder_glob)
+            return out, secs, got_l, folder_glob
+
+        def read_map(folder_glob):
+            with GeoTIFF(os.path.join(glob.glob(folder_glob)[0], "rwa_predictions.tif")) as gt:
+                return gt.read(1, squeeze=True).astype(np.float64)
+
+        def adj_r2(st):
+            return {k: v for k, v in st.items() if "AdjCensus" in k and k.endswith("/r2")}
+
+        # the CLI's default dtype (bf16), then float32
+        torch.cuda.reset_peak_memory_stats(dev)
+        stats, wall, launches, main_glob = run_eval("main", want=MAIN_LAUNCHES)
+        peak = torch.cuda.max_memory_allocated(dev)
+        main_map = read_map(main_glob)
+        want32 = {k.replace("_bf16", ""): v for k, v in MAIN_LAUNCHES.items()}
+        stats32, wall32, launches32, glob32 = run_eval(
+            "main_float32", ("--compute_dtype", "float32"), want32)
+        dtype_corr = float(np.corrcoef(main_map.ravel(), read_map(glob32).ravel())[0, 1])
+        dtype_r2 = {k: v - adj_r2(stats32)[k] for k, v in adj_r2(stats).items()}
+        r2 = stats["Population_AdjCensus_rwa_coarse/r2"]
+        emit({
+            "phase": "main", "members": 5, "patch": 2048, "overlap": 128,
+            "region": [2304, 2560], "patches": n_patches, "setup_s": setup_s,
+            "compute_dtype": "bfloat16", "wall_s": wall, "patches_per_s": n_patches / wall,
+            "peak_mem_bytes": peak, "launches": launches,
+            "adj_coarse_r2": r2, "main_coarse_r2": stats["Population_MainCensus_rwa_coarse/r2"],
+            "float32": {"wall_s": wall32, "patches_per_s": n_patches / wall32,
+                        "launches": launches32,
+                        "adj_coarse_r2": stats32["Population_AdjCensus_rwa_coarse/r2"]},
+            "map_corr_bf16_float32": dtype_corr, "map_corr_min": DTYPE_MAP_CORR,
+            "adj_r2_deltas": dtype_r2, "adj_r2_tol": DTYPE_R2_TOL,
+        })
+        if not (dtype_corr >= DTYPE_MAP_CORR and max(abs(d) for d in dtype_r2.values()) <= DTYPE_R2_TOL):
+            raise AssertionError(f"bf16 vs float32 eval: map correlation {dtype_corr}, "
+                                 f"AdjCensus r2 deltas {dtype_r2}")
+
+        # ---------------------------------------------------------------- 6. quant
+        quant_launches = {}
+        for mode, want in QUANT_LAUNCHES.items():
+            if mode == "int8+pallas_stream":
+                # the JAX package has no CLI flag for it: the config through
+                # the Evaluator, which runs run_sliding_inference with it
+                stats_q, q_wall, got_l, folder_glob = run_eval(
+                    f"quant_{mode}", want=want,
+                    config=lambda c: dataclasses.replace(c, quantize="int8", pallas_stream=True))
+            else:
+                extra = () if mode == "unquantized" else ("--quantize", mode)
+                stats_q, q_wall, got_l, folder_glob = run_eval(f"quant_{mode}", extra, want)
+            quant_launches[mode] = got_l
+            q_r2 = stats_q["Population_AdjCensus_rwa_coarse/r2"]
             deltas = {k: stats_q[k] - stats[k] for k in stats if k.endswith("/r2")}
             q_map = read_map(folder_glob)
-            corr = float(np.corrcoef(float_map.ravel(), q_map.ravel())[0, 1])
+            corr = float(np.corrcoef(main_map.ravel(), q_map.ravel())[0, 1])
             emit({
-                "phase": "quant", "mode": mode, "patches": n_patches, "wall_s": q_wall,
-                "patches_per_s": n_patches / q_wall, "float_wall_s": wall,
-                "float_patches_per_s": n_patches / wall, "launches": got_l,
+                "phase": "quant", "mode": mode, "compute_dtype": "bfloat16", "patches": n_patches,
+                "wall_s": q_wall, "patches_per_s": n_patches / q_wall, "main_wall_s": wall,
+                "main_patches_per_s": n_patches / wall, "launches": got_l,
                 "r2_deltas": deltas, "r2_bound": QUANT_R2_BOUND, "map_corr": corr,
                 "map_corr_min": QUANT_MAP_CORR, "adj_coarse_r2": q_r2,
             })
@@ -888,8 +1007,49 @@ def main() -> None:
             del res, g_c, n_c, g_g, n_g
         del steps
 
+        # the full tier in bf16 (the CLIs' default): card against CPU
+        flags = tiers["full"]
+        res = {}
+        for where in (torch.device("cpu"), dev):
+            step = train_state.make_train_step(mcfg_bf, tcfg, to_torch(consts, where),
+                                               NormStats(device=where),
+                                               train_state.make_optimizer(tcfg))
+            tb = {k: torch.from_numpy(v).to(where) for k, v in small.items()}
+            before = (A.launches_bf16, B.launches_bf16, C.launches, C.bwd_launches)
+            grads, aux = step.grads(to_torch(params, where), tb, mask=mask.to(where), **flags)
+            after = (A.launches_bf16, B.launches_bf16, C.launches, C.bwd_launches)
+            res[where.type] = (dict(train_state.tree_flatten(grads)), aux,
+                               [x - y for x, y in zip(after, before)])
+        (g_c, aux_c, _), (g_g, aux_g, tier_launches) = res["cpu"], res["cuda"]
+        loss_rel = abs(float(aux_g["optimization_loss"]) - float(aux_c["optimization_loss"])) / abs(
+            float(aux_c["optimization_loss"]))
+        pc_rel = float(((aux_g["popcount"].cpu() - aux_c["popcount"]).abs()
+                        / aux_c["popcount"].abs()).max())
+        trainable = [k for k in g_c if not frozen(k, flags)]
+        frozen_ok = all(not bool(g_c[k].any()) and not bool(g_g[k].any())
+                        for k in g_c if frozen(k, flags))
+        moved = all(float(g_c[k].norm()) > 0 for k in trainable)
+        vc = torch.cat([g_c[k].ravel() for k in trainable]).double()
+        vg = torch.cat([g_g[k].cpu().ravel() for k in trainable]).double()
+        grad_rel = float((vg - vc).norm() / vc.norm())
+        grad_corr = float(np.corrcoef(vc.numpy(), vg.numpy())[0, 1])
+        launched = dict(zip(("double_conv_bf16", "up_block_bf16", "head", "head_bwd"), tier_launches))
+        step_ok = (loss_rel <= STEP_BF16_RTOL and pc_rel <= STEP_BF16_RTOL and frozen_ok and moved
+                   and grad_rel <= STEP_BF16_RTOL and grad_corr >= STEP_BF16_CORR
+                   and all(v > 0 for v in launched.values()))
+        emit({"phase": "train_step", "tier": "full", "compute_dtype": "bfloat16", "ok": step_ok,
+              "input": [2, 192, 160, 6], "loss_cpu": float(aux_c["optimization_loss"]),
+              "loss_gpu": float(aux_g["optimization_loss"]), "loss_rel_err": loss_rel,
+              "popcount_rel_err": pc_rel, "grad_rel_l2": grad_rel, "grad_corr": grad_corr,
+              "frozen_leaves_zero": frozen_ok, "card_launches": launched,
+              "rtol": STEP_BF16_RTOL, "corr_min": STEP_BF16_CORR})
+        if not step_ok:
+            raise AssertionError("the bf16 train step on the card disagrees with the CPU plain path")
+        del res, g_c, g_g
+
         # --------------------------------------------------------------- 7. train
-        A.launches = B.launches = C.launches = C.bwd_launches = 0
+        reset_launches()
+        C.bwd_launches = 0
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         trainer = train_cli.main([
@@ -900,7 +1060,9 @@ def main() -> None:
         ])
         torch.cuda.synchronize()
         train_wall = time.perf_counter() - t0
-        train_launches = {"double_conv": A.launches, "up_block": B.launches,
+        # at the default dtype: the builder's blocks in bf16, the training
+        # head in float32 (kernels C and D, as fused_head)
+        train_launches = {"double_conv_bf16": A.launches_bf16, "up_block_bf16": B.launches_bf16,
                           "head": C.launches, "head_bwd": C.bwd_launches}
         train_peak = torch.cuda.max_memory_allocated(dev)
         if not all(v > 0 for v in train_launches.values()):
@@ -970,21 +1132,31 @@ def main() -> None:
         tstats = eval_cli.main(["--data_root", data, *eval_flags, "-r", ck, ck])
         t_r2 = check_eval(tstats, os.path.join(os.path.dirname(ck), "eval_outputs_ensemble_*"))
 
-        # one full-width step at 2x2048^2 (8.4M px: the full-gradient tier)
+        # full-tier steps on seeded batches at the train bucket and at full
+        # width, 2x2048^2 (8.4M px: the full-gradient tier), in bf16 and in
+        # float32
         params, consts = load_popcorn_from_dda(mcfg, head_seed=7)
-        step = train_state.make_train_step(mcfg, tcfg, to_torch(consts, dev), NormStats(device=dev),
-                                           train_state.make_optimizer(tcfg))
         p = to_torch(params, dev)
-        opt_state = step.optimizer.init(p)
-        big = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(2, P, P).items()}
         gen = torch.Generator().manual_seed(0)
+        dtype_steps = {}
+        for cdt, cfg in (("bfloat16", mcfg_bf), ("float32", mcfg)):
+            step = train_state.make_train_step(cfg, tcfg, to_torch(consts, dev),
+                                               NormStats(device=dev), train_state.make_optimizer(tcfg))
+            opt_state = step.optimizer.init(p)
+            for lead in (TRAIN_BUCKET, (2, P, P)):
+                batch = {k: torch.from_numpy(v).to(dev) for k, v in train_batch(*lead).items()}
 
-        def big_step():
-            _, _, aux = step(p, opt_state, big, gen)
-            float(aux["optimization_loss"])
+                def one_step(step=step, opt_state=opt_state, batch=batch):
+                    _, _, aux = step(p, opt_state, batch, gen)
+                    float(aux["optimization_loss"])
 
-        big_t = time_step(big_step)
-        profiles.append(profile_steps(f"full-width step {[2, P, P]}", big_step, big_t["median_ms"]))
+                t = time_step(one_step)
+                dtype_steps.setdefault(cdt, []).append({"input": [*lead, 6], **t})
+                if lead[1] == P:
+                    profiles.append(profile_steps(f"full-width step {list(lead)} {cdt}", one_step,
+                                                  t["median_ms"]))
+                del batch, one_step
+            del step, opt_state
         emit({
             "phase": "train", "steps": len(shapes), "batch_shapes": [list(s) for s in shapes],
             "buckets": list(buckets.values()), "step_reps": STEP_REPS,
@@ -992,26 +1164,33 @@ def main() -> None:
             "epoch_step_ms": epoch_ms, "samples_per_s": n_samples / (epoch_ms / 1e3),
             "cli_wall_s": train_wall, "cli_peak_mem_bytes": train_peak, "losses": losses,
             "head_max_move": moved, "launches": train_launches,
-            "ckpt_eval_adj_coarse_r2": t_r2,
-            "full_width_step": {"input": [2, P, P, 6], **big_t},
+            "ckpt_eval_adj_coarse_r2": t_r2, "compute_dtype": "bfloat16",
+            "seeded_steps": dtype_steps,
         })
         for prof in profiles:
             emit(prof)
-        del big, p, opt_state, step
+        del p
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- summary
-    # each kernel's launches from the run of its own path: A-C the float
-    # eval (main), D training, E/F the int8s eval, G/H the int8 eval
-    launches = {**launches, "head_bwd": train_launches["head_bwd"],
+    # each kernel's launches from the run of its own path: A-C in bf16 the
+    # main eval at the default dtype, in float32 its float32 run, D
+    # training, E/F the int8s eval, G/H the int8 eval
+    launches = {**{k: launches[k] for k in MAIN_LAUNCHES},
+                **{k: launches32[k] for k in ("double_conv", "up_block", "head")},
+                "head_bwd": train_launches["head_bwd"],
                 "double_conv_qs": quant_launches["int8s"]["double_conv_qs"],
                 "up_block_qs": quant_launches["int8s"]["up_block_qs"],
                 "double_conv_q": quant_launches["int8"]["double_conv_q"],
                 "up_block_q": quant_launches["int8"]["up_block_q"]}
     meta = {
         "double_conv": ("popcorn_tpu_torch/csrc/double_conv.cu", "popcorn_tpu/nn/pallas_conv.py:101"),
+        "double_conv_bf16": ("popcorn_tpu_torch/csrc/double_conv.cu",
+                             "popcorn_tpu/nn/pallas_conv.py:101"),
         "up_block": ("popcorn_tpu_torch/csrc/up_block.cu", "popcorn_tpu/nn/pallas_conv.py:472"),
-        "head": ("popcorn_tpu_torch/csrc/head.cu", "popcorn_tpu/nn/pallas_packed_head.py:83"),
+        "up_block_bf16": ("popcorn_tpu_torch/csrc/up_block.cu", "popcorn_tpu/nn/pallas_conv.py:472"),
+        "head": ("popcorn_tpu_torch/csrc/head.cu", "popcorn_tpu/nn/pallas_packed_head.py:41"),
+        "head_bf16": ("popcorn_tpu_torch/csrc/head.cu", "popcorn_tpu/nn/pallas_packed_head.py:83"),
         "head_bwd": ("popcorn_tpu_torch/csrc/head_bwd.cu", "popcorn_tpu/nn/pallas_head.py:56"),
         "double_conv_qs": ("popcorn_tpu_torch/csrc/double_conv_qs.cu", "popcorn_tpu/nn/pallas_conv.py:235"),
         "up_block_qs": ("popcorn_tpu_torch/csrc/up_block_qs.cu", "popcorn_tpu/nn/pallas_conv.py:282"),

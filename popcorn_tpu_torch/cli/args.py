@@ -31,8 +31,10 @@ def _add_common(p: argparse.ArgumentParser):
     p.add_argument("-tlevel", "--train_level", nargs="+", default=["coarse"])
     p.add_argument("-wp", "--wandb_project", type=str, default="POPCORN")
     p.add_argument("--wandb", action="store_true", help="mirror metrics to wandb")
-    p.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default="float32",
-                   help="the port's kernels run float32; bfloat16 is not ported yet")
+    p.add_argument("--compute_dtype", choices=["float32", "bfloat16"], default="bfloat16",
+                   help="the UNets' and the eval head's compute dtype (default "
+                        "bfloat16, as run_eval.py/run_train.py); float32 for "
+                        "parity with the reference")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default; raises without a card) or 'cpu'")
 

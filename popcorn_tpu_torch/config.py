@@ -273,7 +273,8 @@ class ModelConfig:
     segmentation_input: bool = False  # -sinp: keep/derive the building
     # segmentation raster (reference utils/utils.py:153-159)
     feature_extractor: str = "DDA"
-    compute_dtype: str = "float32"  # the kernels take float32 only
+    compute_dtype: str = "float32"  # "bfloat16": the UNets and the eval head
+    # compute in bf16 (nn/popcorn.py); the CLIs default to it
     quantize: Optional[str] = None  # eval only (train steps stay float):
     # "int8": W8A8 through the dynamic int8 kernels (nn/double_conv.py::
     # double_conv_q, nn/up_block.py::up_block_q), one activation scale per

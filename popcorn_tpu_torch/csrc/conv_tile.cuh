@@ -2,15 +2,19 @@
 // and, through conv_tile_i8.cuh, the int8 kernels E-H. Kernel B keeps its
 // own tensor-core tiling (up_block.cu).
 //
-// Layout: activations are NHWC float32; conv weights are HWIO
-// (3, 3, Cin, Cout), so the Cout values of one (tap, input channel) are
-// contiguous and a warp reads them as float4 broadcasts from shared memory.
+// Layout: activations are NHWC float32 or bf16 in device memory and
+// float32 in shared memory (bf16 values convert exactly on load); conv
+// weights are HWIO (3, 3, Cin, Cout), so the Cout values of one (tap,
+// input channel) are contiguous and a warp reads them as float4
+// broadcasts from shared memory.
 // A block owns one TH x TW output tile of one image. Its input is staged
 // with a 2-pixel halo, the first conv runs on the (TH+2) x (TW+2) ring, and
 // the second conv produces the tile.
 #pragma once
 
 #include <cuda_runtime.h>
+
+#include "bf16.cuh"
 
 namespace popcorn {
 
@@ -26,13 +30,14 @@ constexpr int NTHREADS = TH * TW;  // one thread per output pixel of conv2
 
 __host__ __device__ constexpr int align4(int n) { return (n + 3) & ~3; }
 
-// Stage a th x tw window of one NHWC image (C channels) whose top-left
-// pixel is global (gy0, gx0) into `dst`, a tile with CT channels per pixel,
-// at channel offset c_off. Pixels outside the image read as zero: that is
-// the SAME padding of the conv that consumes the tile.
-template <int C, int CT>
+// Stage a th x tw window of one NHWC image (C channels, float32 or bf16)
+// whose top-left pixel is global (gy0, gx0) into `dst`, a float32 tile
+// with CT channels per pixel, at channel offset c_off. Pixels outside the
+// image read as zero: that is the SAME padding of the conv that consumes
+// the tile.
+template <int C, int CT, class S>
 __device__ __forceinline__ void load_tile(float* dst, int c_off,
-                                          const float* __restrict__ img, int H,
+                                          const S* __restrict__ img, int H,
                                           int W, int gy0, int gx0, int th,
                                           int tw) {
   const int n = th * tw * C;
@@ -45,15 +50,14 @@ __device__ __forceinline__ void load_tile(float* dst, int c_off,
     const int gx = gx0 + tx;
     float v = 0.f;
     if (gy >= 0 && gy < H && gx >= 0 && gx < W)
-      v = __ldg(img + ((size_t)gy * W + gx) * C + c);
+      v = load_as_float(img + ((size_t)gy * W + gx) * C + c);
     dst[(ty * tw + tx) * CT + c_off + c] = v;
   }
 }
 
-__device__ __forceinline__ void copy_to_shared(float* dst,
-                                               const float* __restrict__ src,
-                                               int n) {
-  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
+template <class S>
+__device__ __forceinline__ void copy_to_shared(float* dst, const S* __restrict__ src, int n) {
+  for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = load_as_float(src + i);
 }
 
 // acc[o] += sum over the 3x3 taps and CIN channels of in * w, for the
@@ -95,20 +99,22 @@ __host__ __device__ constexpr int tail_floats() {
          2 * align4(CM) + 2 * align4(COUT);
 }
 
-// The DoubleConv tail shared by both kernels, once `tile` holds the
-// (TH+4) x (TW+4) x CIN staged input (zero outside the image):
+// The DoubleConv tail of kernel A, once `tile` holds the (TH+4) x (TW+4)
+// x CIN staged input (zero outside the image):
 //   y1 = relu(conv1(tile) * s1 + t1) on the (TH+2) x (TW+2) ring, set to 0
 //        wherever the ring lies outside the image (it stands in for
-//        conv2's zero padding; relu(t1) there would leak into the border);
-//   out = relu(conv2(y1) * s2 + t2) on the TH x TW tile, written NHWC.
+//        conv2's zero padding; relu(t1) there would leak into the border),
+//        rounded to the storage type T;
+//   out = relu(conv2(y1) * s2 + t2) on the TH x TW tile, written NHWC in T.
 // `tail` is the tail_floats<CIN, CM, COUT>() floats of shared memory after
-// the tile; the weights and affine vectors are copied in here.
-template <int CIN, int CM, int COUT>
+// the tile; the weights (in T) and the float32 affine vectors are copied in
+// here.
+template <int CIN, int CM, int COUT, class T>
 __device__ __forceinline__ void double_conv_tail(
-    const float* tile, float* tail, const float* __restrict__ w1,
+    const float* tile, float* tail, const T* __restrict__ w1,
     const float* __restrict__ s1, const float* __restrict__ t1,
-    const float* __restrict__ w2, const float* __restrict__ s2,
-    const float* __restrict__ t2, float* __restrict__ out_img, int H, int W,
+    const T* __restrict__ w2, const float* __restrict__ s2,
+    const float* __restrict__ t2, T* __restrict__ out_img, int H, int W,
     int y0, int x0) {
   float* y1s = tail;
   float* w1s = y1s + align4((TH + 2) * (TW + 2) * CM);
@@ -138,7 +144,7 @@ __device__ __forceinline__ void double_conv_tail(
       for (int o = 0; o < CM; ++o) acc[o] = 0.f;
       conv3x3_px<CIN, CM>(tile, TW + 4, ry, rx, w1s, acc);
 #pragma unroll
-      for (int o = 0; o < CM; ++o) dst[o] = fmaxf(fmaf(acc[o], s1s[o], t1s[o]), 0.f);
+      for (int o = 0; o < CM; ++o) dst[o] = round_to<T>(fmaxf(fmaf(acc[o], s1s[o], t1s[o]), 0.f));
     } else {
 #pragma unroll
       for (int o = 0; o < CM; ++o) dst[o] = 0.f;
@@ -155,16 +161,11 @@ __device__ __forceinline__ void double_conv_tail(
 #pragma unroll
     for (int o = 0; o < COUT; ++o) acc[o] = 0.f;
     conv3x3_px<CM, COUT>(y1s, RW, ty, tx, w2s, acc);
-    float4* op = reinterpret_cast<float4*>(out_img + ((size_t)gy * W + gx) * COUT);
+    T* op = out_img + ((size_t)gy * W + gx) * COUT;
+    auto y = [&](int o) { return fmaxf(fmaf(acc[o], s2s[o], t2s[o]), 0.f); };
 #pragma unroll
-    for (int o4 = 0; o4 < COUT / 4; ++o4) {
-      float4 v;
-      v.x = fmaxf(fmaf(acc[4 * o4 + 0], s2s[4 * o4 + 0], t2s[4 * o4 + 0]), 0.f);
-      v.y = fmaxf(fmaf(acc[4 * o4 + 1], s2s[4 * o4 + 1], t2s[4 * o4 + 1]), 0.f);
-      v.z = fmaxf(fmaf(acc[4 * o4 + 2], s2s[4 * o4 + 2], t2s[4 * o4 + 2]), 0.f);
-      v.w = fmaxf(fmaf(acc[4 * o4 + 3], s2s[4 * o4 + 3], t2s[4 * o4 + 3]), 0.f);
-      op[o4] = v;
-    }
+    for (int o4 = 0; o4 < COUT / 4; ++o4)
+      store4(op + 4 * o4, y(4 * o4), y(4 * o4 + 1), y(4 * o4 + 2), y(4 * o4 + 3));
   }
 }
 

@@ -11,6 +11,14 @@
 // inside [oy, oy+2h) x [ox, ox+2w), and 0 outside, where
 // oy = (H-2h)//2 and ox = (W-2w)//2.
 //
+// The storage type T is float or bf16. In bf16 the kernel rounds where
+// _up_block_kernel does at cdt = bf16: x1, the skip and the weights are
+// bf16, the transposed conv sums in float32 and its output is rounded to
+// bf16 after the bias (pallas_conv.py:521), y1 is rounded to bf16, the
+// output is bf16; the affines are float32. Every bf16 value is exact in
+// TF32, so the bf16 mode runs the same MMAs with one TF32 pass a product
+// (the split's small parts are zero) and float32 accumulators.
+//
 // What bounds it on the H100: the two convs' arithmetic, 9*(Cs+Cu)*Cm +
 // 9*Cm*Cout multiply-adds a fine pixel (2,880 at up2, 1,728 at up1)
 // against 4*(Cs + Cu/4 + Cout) bytes read and written; the unfused block
@@ -39,7 +47,9 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <type_traits>
 
+#include "bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace popcorn {
@@ -70,8 +80,9 @@ __device__ __forceinline__ int chan(int pix, int ch) {
 // is tile pixel base[m] (16 pixels along a row of RS pixels), with HWIO
 // weights w (3, 3, C, 8): 9 taps x C/8 k-steps, each weight fragment
 // split once for the NM tiles, and two accumulator chains a tile
-// (mma_3xtf32's small and big terms; the caller adds them)
-template <int C, int RS, int NM>
+// (mma_3xtf32's small and big terms; the caller adds them). EXACT: the
+// operands are exact in TF32 (bf16 values), one MMA a product.
+template <int C, int RS, int NM, bool EXACT>
 __device__ __forceinline__ void conv3x3_mma(float (&d)[NM][2][4], const float* src,
                                             const int (&base)[NM], const float* w, int g,
                                             int t) {
@@ -81,15 +92,29 @@ __device__ __forceinline__ void conv3x3_mma(float (&d)[NM][2][4], const float* s
     const float* wk = w + tap * C * UB_CM;
 #pragma unroll
     for (int k0 = 0; k0 < C; k0 += 8) {
+      auto b_at = [wk](int k, int n) { return wk[k * UB_CM + n]; };
       uint32_t bb[2], bs[2];
-      load_b([wk](int k, int n) { return wk[k * UB_CM + n]; }, k0, 0, g, t, bb, bs);
+      if constexpr (EXACT) {
+        bb[0] = __float_as_uint(b_at(k0 + t, g));
+        bb[1] = __float_as_uint(b_at(k0 + t + 4, g));
+      } else {
+        load_b(b_at, k0, 0, g, t, bb, bs);
+      }
 #pragma unroll
       for (int m = 0; m < NM; ++m) {
         const int p = base[m] + off;
-        uint32_t ab[4], as[4];
-        load_a([src, p](int r, int c) { return src[chan<C>(p + r, c)]; }, 0, k0, g, t, ab,
-               as);
-        mma_3xtf32(d[m][0], d[m][1], ab, as, bb, bs);
+        auto a_at = [src, p](int r, int c) { return src[chan<C>(p + r, c)]; };
+        if constexpr (EXACT) {
+          const uint32_t a[4] = {__float_as_uint(a_at(g, k0 + t)),
+                                 __float_as_uint(a_at(g + 8, k0 + t)),
+                                 __float_as_uint(a_at(g, k0 + t + 4)),
+                                 __float_as_uint(a_at(g + 8, k0 + t + 4))};
+          mma_tf32(d[m][1], a, bb[0], bb[1]);
+        } else {
+          uint32_t ab[4], as[4];
+          load_a(a_at, 0, k0, g, t, ab, as);
+          mma_3xtf32(d[m][0], d[m][1], ab, as, bb, bs);
+        }
       }
     }
   }
@@ -102,17 +127,18 @@ constexpr int up_block_smem_floats() {
          9 * UB_CM * UB_CM + C1 * 4 * CU + CU + 4 * UB_CM;
 }
 
-template <int C1, int CS, int CU>
+template <class T, int C1, int CS, int CU>
 __global__ void __launch_bounds__(UB_THREADS, 2)
-    up_block_kernel(const float* __restrict__ x1, const float* __restrict__ x2,
-                    const float* __restrict__ wt, const float* __restrict__ bt,
-                    const float* __restrict__ w1, const float* __restrict__ s1,
-                    const float* __restrict__ t1, const float* __restrict__ w2,
+    up_block_kernel(const T* __restrict__ x1, const T* __restrict__ x2,
+                    const T* __restrict__ wt, const float* __restrict__ bt,
+                    const T* __restrict__ w1, const float* __restrict__ s1,
+                    const float* __restrict__ t1, const T* __restrict__ w2,
                     const float* __restrict__ s2, const float* __restrict__ t2,
-                    float* __restrict__ out, int H, int W, int h, int w, int oy,
+                    T* __restrict__ out, int H, int W, int h, int w, int oy,
                     int ox) {
   constexpr int CC = CS + CU, TH = ub_rows<CC>(), IH = TH + 4, RH = TH + 2;
   constexpr int CM = UB_CM, NW = UB_THREADS / 32;
+  constexpr bool BF16 = std::is_same<T, __nv_bfloat16>::value;
   static_assert(CS % 4 == 0 && CU % 4 == 0 && (CC == 16 || CC == 32),
                 "conv1 takes 16 or 32 channels in groups of 4");
   extern __shared__ __align__(16) float smem[];
@@ -127,19 +153,29 @@ __global__ void __launch_bounds__(UB_THREADS, 2)
   const int y0 = blockIdx.y * TH, x0 = blockIdx.x * UB_TW;
 
   // the skip channels of the input tile (global origin y0-2, x0-2), zero
-  // outside the image: the SAME padding of conv1
-  const float* x2b = x2 + (size_t)b * H * W * CS;
+  // outside the image: the SAME padding of conv1. float32 arrives by
+  // cp.async; bf16 is widened to float32 on the way
+  const T* x2b = x2 + (size_t)b * H * W * CS;
   for (int i = tid; i < IH * UB_IW * (CS / 4); i += UB_THREADS) {
     const int pix = i / (CS / 4), c4 = i % (CS / 4);
     const int gy = y0 - 2 + pix / UB_IW, gx = x0 - 2 + pix % UB_IW;
     const bool in = gy >= 0 && gy < H && gx >= 0 && gx < W;
-    cp_async16(tile + chan<CC>(pix, 4 * c4),
-               in ? x2b + ((size_t)gy * W + gx) * CS + 4 * c4 : x2b, in ? 16 : 0);
+    const T* src = x2b + ((size_t)gy * W + gx) * CS + 4 * c4;
+    float* dst = tile + chan<CC>(pix, 4 * c4);
+    if constexpr (BF16) {
+      uint2 v = in ? __ldg(reinterpret_cast<const uint2*>(src)) : make_uint2(0u, 0u);
+      const __nv_bfloat162 lo = *reinterpret_cast<__nv_bfloat162*>(&v.x);
+      const __nv_bfloat162 hi = *reinterpret_cast<__nv_bfloat162*>(&v.y);
+      *reinterpret_cast<float4*>(dst) = make_float4(__low2float(lo), __high2float(lo),
+                                                    __low2float(hi), __high2float(hi));
+    } else {
+      cp_async16(dst, in ? src : x2b, in ? 16 : 0);
+    }
   }
   cp_async_commit();
-  for (int i = tid; i < 9 * CC * CM; i += UB_THREADS) w1s[i] = __ldg(w1 + i);
-  for (int i = tid; i < 9 * CM * CM; i += UB_THREADS) w2s[i] = __ldg(w2 + i);
-  for (int i = tid; i < C1 * 4 * CU; i += UB_THREADS) wts[i] = __ldg(wt + i);
+  for (int i = tid; i < 9 * CC * CM; i += UB_THREADS) w1s[i] = load_as_float(w1 + i);
+  for (int i = tid; i < 9 * CM * CM; i += UB_THREADS) w2s[i] = load_as_float(w2 + i);
+  for (int i = tid; i < C1 * 4 * CU; i += UB_THREADS) wts[i] = load_as_float(wt + i);
   if (tid < CU) bts[tid] = __ldg(bt + tid);
   if (tid < CM) {
     aff[tid] = __ldg(s1 + tid);
@@ -149,8 +185,9 @@ __global__ void __launch_bounds__(UB_THREADS, 2)
   }
   __syncthreads();
 
-  // the upsampled channels beside them, from the coarse input
-  const float* x1b = x1 + (size_t)b * h * w * C1;
+  // the upsampled channels beside them, from the coarse input: the sum,
+  // then the bias, rounded to T (0 outside the upsampled region)
+  const T* x1b = x1 + (size_t)b * h * w * C1;
   for (int pix = tid; pix < IH * UB_IW; pix += UB_THREADS) {
     const int gy = y0 - 2 + pix / UB_IW, gx = x0 - 2 + pix % UB_IW;
     const int uy = gy - oy, ux = gx - ox;
@@ -159,14 +196,12 @@ __global__ void __launch_bounds__(UB_THREADS, 2)
     for (int o = 0; o < CU; ++o) acc[o] = 0.f;
     if (gy >= 0 && gy < H && gx >= 0 && gx < W && uy >= 0 && uy < 2 * h && ux >= 0 &&
         ux < 2 * w) {
-      const float* xp = x1b + ((size_t)(uy >> 1) * w + (ux >> 1)) * C1;
+      const T* xp = x1b + ((size_t)(uy >> 1) * w + (ux >> 1)) * C1;
       const float4* wp =
           reinterpret_cast<const float4*>(wts + ((uy & 1) * 2 + (ux & 1)) * CU);
-#pragma unroll
-      for (int o = 0; o < CU; ++o) acc[o] = bts[o];
 #pragma unroll 4
       for (int c = 0; c < C1; ++c) {
-        const float v = __ldg(xp + c);
+        const float v = load_as_float(xp + c);
         // Wt is (C1, 2, 2, CU): input channel c strides 4*CU floats
 #pragma unroll
         for (int o4 = 0; o4 < CU / 4; ++o4) {
@@ -177,6 +212,8 @@ __global__ void __launch_bounds__(UB_THREADS, 2)
           acc[4 * o4 + 3] = fmaf(v, wv.w, acc[4 * o4 + 3]);
         }
       }
+#pragma unroll
+      for (int o = 0; o < CU; ++o) acc[o] = round_to<T>(acc[o] + bts[o]);
     }
 #pragma unroll
     for (int o4 = 0; o4 < CU / 4; ++o4)
@@ -198,7 +235,7 @@ __global__ void __launch_bounds__(UB_THREADS, 2)
     int base[2 * RPW];
 #pragma unroll
     for (int m = 0; m < 2 * RPW; ++m) base[m] = (ry + m / 2) * UB_IW + 16 * (m % 2);
-    conv3x3_mma<CC, UB_IW>(d, tile, base, w1s, g, t);
+    conv3x3_mma<CC, UB_IW, 2 * RPW, BF16>(d, tile, base, w1s, g, t);
     const float sa = aff[2 * t], sb = aff[2 * t + 1];
     const float ta = aff[CM + 2 * t], tb = aff[CM + 2 * t + 1];
 #pragma unroll
@@ -211,8 +248,8 @@ __global__ void __launch_bounds__(UB_THREADS, 2)
         const float va = d[m][0][2 * hh] + d[m][1][2 * hh];
         const float vb = d[m][0][2 * hh + 1] + d[m][1][2 * hh + 1];
         *reinterpret_cast<float2*>(ring + chan<CM>(r * UB_RW + rx, 2 * t)) =
-            make_float2(in ? fmaxf(fmaf(va, sa, ta), 0.f) : 0.f,
-                        in ? fmaxf(fmaf(vb, sb, tb), 0.f) : 0.f);
+            make_float2(in ? round_to<T>(fmaxf(fmaf(va, sa, ta), 0.f)) : 0.f,
+                        in ? round_to<T>(fmaxf(fmaf(vb, sb, tb), 0.f)) : 0.f);
       }
     }
   }
@@ -227,32 +264,32 @@ __global__ void __launch_bounds__(UB_THREADS, 2)
     float d[4][2][4] = {};
     const int base[4] = {ty * UB_RW, ty * UB_RW + 14, (ty + 1) * UB_RW,
                          (ty + 1) * UB_RW + 14};
-    conv3x3_mma<CM, UB_RW>(d, ring, base, w2s, g, t);
+    conv3x3_mma<CM, UB_RW, 4, BF16>(d, ring, base, w2s, g, t);
 #pragma unroll
     for (int m = 0; m < 4; ++m) {
       const int gy = y0 + ty + m / 2;
-      float* orow = out + ((size_t)b * H + gy) * W * CM;
+      T* orow = out + ((size_t)b * H + gy) * W * CM;
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int px = g + 8 * hh, gx = x0 + 14 * (m % 2) + px;
         const float va = d[m][0][2 * hh] + d[m][1][2 * hh];
         const float vb = d[m][0][2 * hh + 1] + d[m][1][2 * hh + 1];
         if ((m % 2 == 0 || px >= 2) && gy < H && gx < W)
-          *reinterpret_cast<float2*>(orow + (size_t)gx * CM + 2 * t) =
-              make_float2(fmaxf(fmaf(va, sa, ta), 0.f), fmaxf(fmaf(vb, sb, tb), 0.f));
+          store2(orow + (size_t)gx * CM + 2 * t, fmaxf(fmaf(va, sa, ta), 0.f),
+                 fmaxf(fmaf(vb, sb, tb), 0.f));
       }
     }
   }
 }
 
-template <int C1, int CS, int CU>
-int launch_up(const float* x1, const float* x2, const float* wt, const float* bt,
-              const float* w1, const float* s1, const float* t1, const float* w2,
-              const float* s2, const float* t2, float* out, int B, int H, int W, int h,
-              int w, int oy, int ox, cudaStream_t stream) {
+template <class T, int C1, int CS, int CU>
+int launch_up(const T* x1, const T* x2, const T* wt, const float* bt, const T* w1,
+              const float* s1, const float* t1, const T* w2, const float* s2,
+              const float* t2, T* out, int B, int H, int W, int h, int w, int oy, int ox,
+              cudaStream_t stream) {
   constexpr int TH = ub_rows<CS + CU>();
   constexpr size_t smem = sizeof(float) * up_block_smem_floats<C1, CS, CU>();
-  auto kern = up_block_kernel<C1, CS, CU>;
+  auto kern = up_block_kernel<T, C1, CS, CU>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -264,25 +301,50 @@ int launch_up(const float* x1, const float* x2, const float* wt, const float* bt
 
 }  // namespace popcorn
 
-// x2 16-byte aligned (the skip is staged by cp.async). Returns a
-// cudaError_t (0 on success), or -1 for a channel combination that has no
-// instantiation or a misaligned skip.
-extern "C" int popcorn_up_block_f32(const float* x1, const float* x2,
-                                    const float* wt, const float* bt,
-                                    const float* w1, const float* s1,
-                                    const float* t1, const float* w2,
-                                    const float* s2, const float* t2,
-                                    float* out, int B, int H, int W, int h,
-                                    int w, int oy, int ox, int c1, int cs,
-                                    int cu, int cm, int cout, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+namespace popcorn {
+
+template <class T>
+int launch_up_any(const T* x1, const T* x2, const T* wt, const float* bt, const T* w1,
+                  const float* s1, const float* t1, const T* w2, const float* s2,
+                  const float* t2, T* out, int B, int H, int W, int h, int w, int oy, int ox,
+                  int c1, int cs, int cu, int cm, int cout, cudaStream_t st) {
   if (reinterpret_cast<uintptr_t>(x2) % 16 != 0) return -1;
-#define POPCORN_UP(A, S, U, M, O)                                                 \
-  if (c1 == A && cs == S && cu == U && cm == M && cout == O)                      \
-    return popcorn::launch_up<A, S, U>(x1, x2, wt, bt, w1, s1, t1, w2, s2, t2, out, \
-                                       B, H, W, h, w, oy, ox, st);
+#define POPCORN_UP(A, S, U, M, O)                                                       \
+  if (c1 == A && cs == S && cu == U && cm == M && cout == O)                            \
+    return launch_up<T, A, S, U>(x1, x2, wt, bt, w1, s1, t1, w2, s2, t2, out, B, H, W, h, \
+                                 w, oy, ox, st);
   POPCORN_UP(16, 16, 16, 8, 8)
   POPCORN_UP(8, 8, 8, 8, 8)
 #undef POPCORN_UP
   return -1;
+}
+
+}  // namespace popcorn
+
+// x2 16-byte aligned (the skip is staged by 16-byte copies). Returns a
+// cudaError_t (0 on success), or -1 for a channel combination that has no
+// instantiation or a misaligned skip.
+extern "C" int popcorn_up_block_f32(const float* x1, const float* x2, const float* wt,
+                                    const float* bt, const float* w1, const float* s1,
+                                    const float* t1, const float* w2, const float* s2,
+                                    const float* t2, float* out, int B, int H, int W, int h,
+                                    int w, int oy, int ox, int c1, int cs, int cu, int cm,
+                                    int cout, void* stream) {
+  return popcorn::launch_up_any(x1, x2, wt, bt, w1, s1, t1, w2, s2, t2, out, B, H, W, h, w,
+                                oy, ox, c1, cs, cu, cm, cout,
+                                static_cast<cudaStream_t>(stream));
+}
+
+// The bf16 mode: bf16 inputs, weights and output; float32 tconv bias and
+// affine vectors.
+extern "C" int popcorn_up_block_bf16(const __nv_bfloat16* x1, const __nv_bfloat16* x2,
+                                     const __nv_bfloat16* wt, const float* bt,
+                                     const __nv_bfloat16* w1, const float* s1,
+                                     const float* t1, const __nv_bfloat16* w2,
+                                     const float* s2, const float* t2, __nv_bfloat16* out,
+                                     int B, int H, int W, int h, int w, int oy, int ox,
+                                     int c1, int cs, int cu, int cm, int cout, void* stream) {
+  return popcorn::launch_up_any(x1, x2, wt, bt, w1, s1, t1, w2, s2, t2, out, B, H, W, h, w,
+                                oy, ox, c1, cs, cu, cm, cout,
+                                static_cast<cudaStream_t>(stream));
 }

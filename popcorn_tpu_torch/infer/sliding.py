@@ -35,6 +35,7 @@ from ..nn.popcorn import (
     builder_quantized,
     calibrate_member_scales,
     check_config,
+    compute_dtype,
     create_building_score,
     fold_unpadded,
     popcorn_predict,
@@ -83,7 +84,7 @@ def make_patch_forward(mcfg: ModelConfig, consts: Tree, stats: NormStats, n_memb
         if mcfg.sentinel_buildings or not mcfg.occupancy_model:
             score = create_building_score(
                 consts["builder"], x, s1=mcfg.s1, s2=mcfg.s2, nir=mcfg.nir,
-                quantize=builder_quantized(mcfg),
+                quantize=builder_quantized(mcfg), dtype=compute_dtype(mcfg),
             )
         else:
             score = batch["building_counts"]

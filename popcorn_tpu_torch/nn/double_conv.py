@@ -2,9 +2,15 @@
 
     relu(bn2(conv3x3(relu(bn1(conv3x3(x) + b1))) + b2))
 
-Kernel A (csrc/double_conv.cu), float32: counterpart of
+Kernel A (csrc/double_conv.cu), float32 or bfloat16: counterpart of
 popcorn_tpu/nn/pallas_conv.py::fused_double_conv (Pallas kernel
-``_double_conv_kernel``) on plain NHWC tensors.
+``_double_conv_kernel``) on plain NHWC tensors. In bfloat16 it rounds
+where that kernel rounds: the input and the weights are bf16, the sums
+and the folded affine float32, y1 is rounded to bf16 on chip and the
+output is bf16. ``double_conv_ops`` is the same block as a composition of
+nn/ops.py ops, which round after every op in bf16 as the JAX package's
+XLA route (popcorn_tpu/nn/unet.py::double_conv) does: the route of the
+blocks that train.
 
 Kernel E (csrc/double_conv_qs.cu), static int8 (``quantize`` int8s and
 w4a8): counterpart of ``fused_double_conv_qs`` (``_double_conv_kernel_qs``).
@@ -30,9 +36,10 @@ import ctypes
 from typing import Any, Dict, Tuple
 
 import torch
+import torch.nn.functional as F
 
 from . import cuda_lib
-from .ops import conv3x3, frozen_bn
+from .ops import conv3x3, frozen_bn, to_nchw, to_nhwc
 from .quant import (
     conv3x3_codes,
     inside_tiles,
@@ -46,8 +53,10 @@ from .quant import (
 
 Tree = Dict[str, Any]
 
-# launches of kernels A, E and G, each counted where its wrapper launches it
+# launches of kernels A (float32 and bf16 modes apart), E and G, each
+# counted where its wrapper launches it
 launches = 0
+launches_bf16 = 0
 launches_qs = 0
 launches_q = 0
 
@@ -60,20 +69,55 @@ def fold_affine(b: torch.Tensor, bn: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
     return s.contiguous(), t.contiguous()
 
 
-def double_conv_plain(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
-    """(conv3x3 -> frozen BN -> ReLU) x 2 in plain PyTorch
-    (reference: networks.py:253-271)."""
-    x = torch.relu(frozen_bn(conv3x3(x, p["conv1"]), bn["bn1"]))
-    return torch.relu(frozen_bn(conv3x3(x, p["conv2"]), bn["bn2"]))
+def double_conv_ops(p: Tree, bn: Tree, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """(conv3x3 -> frozen BN -> ReLU) x 2 as nn/ops.py ops in ``dtype``
+    (reference: networks.py:253-271; popcorn_tpu/nn/unet.py::double_conv).
+    Differentiable: the route of a block that trains."""
+    x = torch.relu(frozen_bn(conv3x3(x, p["conv1"], dtype), bn["bn1"]))
+    return torch.relu(frozen_bn(conv3x3(x, p["conv2"], dtype), bn["bn2"]))
+
+
+def conv3x3_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """SAME 3x3 convolution of NHWC ``x`` by HWIO ``w``, both already
+    rounded to the compute dtype, summed in float32: a bf16 x bf16 product
+    is exact in float32, as in the Pallas kernels' _conv_rows."""
+    return to_nhwc(F.conv2d(to_nchw(x.float()), w.float().permute(3, 2, 0, 1), padding=1))
+
+
+def double_conv_plain(p: Tree, bn: Tree, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Kernel A in plain PyTorch, in the compute dtype ``dtype`` or x's,
+    rounded where pallas_conv.py::_double_conv_kernel rounds (module
+    docstring; every rounding is a no-op in float32). The zero padding of
+    y1's conv stands in for the kernel's zeroed ring."""
+    cdt = dtype or x.dtype
+    s1, t1 = fold_affine(p["conv1"]["b"], bn["bn1"])
+    s2, t2 = fold_affine(p["conv2"]["b"], bn["bn2"])
+    y1 = torch.relu(conv3x3_f32(x.to(cdt), p["conv1"]["w"].to(cdt)) * s1 + t1).to(cdt)
+    return torch.relu(conv3x3_f32(y1, p["conv2"]["w"].to(cdt)) * s2 + t2).to(cdt)
+
+
+# each float kernel's C entry by storage dtype
+KERNEL_SYMBOLS = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def storage_dtype(name: str, x: torch.Tensor) -> torch.dtype:
+    """The float kernels' storage dtype, x's: float32 or bfloat16."""
+    if x.dtype not in KERNEL_SYMBOLS:
+        raise TypeError(f"{name}: input is {x.dtype}; the kernel takes float32 or bfloat16")
+    return x.dtype
 
 
 def double_conv_cuda(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
-    """Launch kernel A on a contiguous float32 NHWC CUDA tensor."""
-    global launches
-    w1, w2 = p["conv1"]["w"], p["conv2"]["w"]
+    """Launch kernel A on a contiguous float32 or bfloat16 NHWC CUDA
+    tensor; the weights are rounded to x's dtype, the output is in it."""
+    global launches, launches_bf16
+    dt = storage_dtype("double_conv", x)
+    w1, w2 = (p[k]["w"].to(dt).contiguous() for k in ("conv1", "conv2"))
     s1, t1 = fold_affine(p["conv1"]["b"], bn["bn1"])
     s2, t2 = fold_affine(p["conv2"]["b"], bn["bn2"])
-    cuda_lib.require_cuda_f32("double_conv", x, w1, w2, s1, t1, s2, t2)
+    f32 = torch.float32
+    cuda_lib.require_cuda("double_conv", [
+        (x, dt), (w1, dt), (w2, dt), (s1, f32), (t1, f32), (s2, f32), (t2, f32)])
     b, h, w, cin = x.shape
     cm, cout = w1.shape[3], w2.shape[3]
     if w1.shape != (3, 3, cin, cm) or w2.shape != (3, 3, cm, cout):
@@ -81,11 +125,11 @@ def double_conv_cuda(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
             f"double_conv: weights {tuple(w1.shape)}, {tuple(w2.shape)} do not "
             f"fit input channels {cin}"
         )
-    out = torch.empty((b, h, w, cout), device=x.device, dtype=torch.float32)
+    out = torch.empty((b, h, w, cout), device=x.device, dtype=dt)
     if out.numel() == 0:
         return out
     fn = cuda_lib.function(
-        "double_conv", "popcorn_double_conv_f32",
+        "double_conv", f"popcorn_double_conv_{KERNEL_SYMBOLS[dt]}",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     )
     P = cuda_lib.ptr
@@ -94,12 +138,17 @@ def double_conv_cuda(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
         b, h, w, cin, cm, cout, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(rc, "double_conv")
-    launches += 1
+    if dt == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
-def double_conv(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
-    """The DoubleConv block: plain PyTorch on the CPU, kernel A on CUDA."""
+def double_conv(p: Tree, bn: Tree, x: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The DoubleConv block in the compute dtype ``dtype`` (default x's;
+    x is cast to it): plain PyTorch on the CPU, kernel A on CUDA."""
+    x = x.to(dtype or x.dtype)
     if x.device.type == "cpu":
         return double_conv_plain(p, bn, x)
     return double_conv_cuda(p, bn, x)
@@ -239,9 +288,12 @@ def double_conv_q_cuda(w1q, d1, t1, w2q, d2, t2, x: torch.Tensor) -> torch.Tenso
 
 
 def double_conv_q(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
-    """Dynamic int8 DoubleConv, float32 in and out: plain PyTorch on the
-    CPU, kernel G on CUDA."""
+    """Dynamic int8 DoubleConv, out in x's dtype: plain PyTorch on the CPU,
+    kernel G on CUDA. Kernel G reads and writes float32: a bfloat16 input
+    is widened (exactly; the JAX kernel quantizes its bf16 slab from its
+    float32 value too) and the output rounded to bf16, as the JAX kernel
+    writes it in the compute dtype."""
     args = q_args(p, bn)
-    if x.device.type == "cpu":
-        return double_conv_q_plain(*args, x)
-    return double_conv_q_cuda(*args, x)
+    xf = x.float()
+    out = double_conv_q_plain(*args, xf) if x.device.type == "cpu" else double_conv_q_cuda(*args, xf)
+    return out.to(x.dtype)

@@ -10,9 +10,17 @@ TPU lane layouts of that same function). Kernel D is the backward of
 fused_head's custom VJP (pallas_head.py::_bwd_kernel), and ``head_train``
 is the ``torch.autograd.Function`` that pairs the two, as ``_head_flat``
 does: its forward is kernel C with two channels and saves only the input
-and the weights; its backward recomputes the activations in kernel D,
-which runs its products on the tensor cores in the float32-accurate
+and the weights; its backward recomputes the activations in kernel D.
+Both run their products on the tensor cores in the float32-accurate
 3xTF32 form.
+
+Compute dtype. float32 features run the head in float32. bfloat16
+features, with one output channel, run it as
+pallas_packed_head.py::_blockdiag_kernel_cdt does: bf16 features and
+weights, float32 biases and sums, h1..h3 rounded to bf16, a bf16 output.
+The training head (``head_train``) is fused_head, float32 whatever the
+features' dtype (pallas_head.py:43): it widens bf16 features and returns
+their gradient in bf16.
 
 Each wrapper takes the plain version for a tensor on the CPU and launches
 its CUDA kernel for a tensor on the card; there is no fallback between
@@ -33,40 +41,59 @@ Tree = Dict[str, Any]
 HEAD_LAYERS = ("l1", "l2", "l3", "l4")
 DIMS = (16, 64, 64, 64, 2)
 
-# launches of the CUDA kernel, counted where the wrapper launches it
+# launches of kernel C (float32 and bf16 modes apart), counted where the
+# wrapper launches it
 launches = 0
+launches_bf16 = 0
 
 
 def head_plain(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
     """Four channel matmuls with ReLUs between them; the last layer keeps
-    its first ``n_out`` output channels."""
+    its first ``n_out`` output channels. In the features' dtype, float32
+    or bfloat16, rounded as kernel C rounds (module docstring; every
+    rounding is a no-op in float32)."""
+    cdt = feats.dtype
     x = feats
     for name in HEAD_LAYERS[:-1]:
-        x = torch.relu(torch.matmul(x, p[name]["w"]) + p[name]["b"])
-    return torch.matmul(x, p["l4"]["w"][:, :n_out]) + p["l4"]["b"][:n_out]
+        w = p[name]["w"].to(cdt).float()
+        x = torch.relu(torch.matmul(x.float(), w) + p[name]["b"].float()).to(cdt)
+    w4 = p["l4"]["w"][:, :n_out].to(cdt).float()
+    return (torch.matmul(x.float(), w4) + p["l4"]["b"][:n_out].float()).to(cdt)
 
 
 def head_cuda(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
-    """Launch kernel C on (..., 16) contiguous float32 CUDA features."""
-    global launches
+    """Launch kernel C on (..., 16) contiguous CUDA features: float32 with
+    one or two output channels, or bfloat16 with one; the output is in the
+    features' dtype."""
+    global launches, launches_bf16
     if n_out not in (1, 2):
         raise ValueError(f"head: n_out must be 1 or 2, got {n_out}")
+    bf16 = feats.dtype == torch.bfloat16
+    if bf16 and n_out != 1:
+        raise ValueError("head: the bfloat16 kernel emits channel 0 only (n_out=1)")
+    wdt = feats.dtype if bf16 else torch.float32
+    typed = [(feats, wdt)]
     wts = []
     for name, (ci, co) in zip(HEAD_LAYERS, zip(DIMS[:-1], DIMS[1:])):
         w, b = p[name]["w"], p[name]["b"]
         if w.shape != (ci, co) or b.shape != (co,):
             raise ValueError(f"head: {name} is {tuple(w.shape)}/{tuple(b.shape)}, expected {(ci, co)}")
+        w = w.to(wdt).contiguous()
+        typed += [(w, wdt), (b, torch.float32)]
         wts += [w, b]
-    cuda_lib.require_cuda_f32("head", feats, *wts)
+    cuda_lib.require_cuda("head", typed)
     if feats.shape[-1] != DIMS[0]:
         raise ValueError(f"head: expected {DIMS[0]} input channels, got {feats.shape[-1]}")
+    # the kernel reads a pixel's features as one 16-byte (bf16: 8-byte) load
+    if feats.data_ptr() % 16:
+        feats = feats.clone()
     lead = feats.shape[:-1]
     n = feats.numel() // DIMS[0]
-    out = torch.empty((*lead, n_out), device=feats.device, dtype=torch.float32)
+    out = torch.empty((*lead, n_out), device=feats.device, dtype=wdt)
     if n == 0:
         return out
     fn = cuda_lib.function(
-        "head", "popcorn_head_f32",
+        "head", "popcorn_head_bf16" if bf16 else "popcorn_head_f32",
         [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
     )
     P = cuda_lib.ptr
@@ -75,13 +102,17 @@ def head_cuda(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
         cuda_lib.stream_ptr(feats.device),
     )
     cuda_lib.check(rc, "head")
-    launches += 1
+    if bf16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
 def head_apply(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
-    """(..., 16) features -> (..., n_out): plain PyTorch on the CPU,
-    kernel C on CUDA."""
+    """(..., 16) features -> (..., n_out) in their dtype (float32, or
+    bfloat16 with ``n_out=1``): plain PyTorch on the CPU, kernel C on
+    CUDA."""
     if feats.device.type == "cpu":
         return head_plain(p, feats, n_out)
     return head_cuda(p, feats, n_out)
@@ -177,21 +208,23 @@ class _HeadTrain(torch.autograd.Function):
     @staticmethod
     def forward(ctx, feats, *wts):
         ctx.save_for_backward(feats, *wts)
-        return head_apply(_tree(wts), feats, n_out=2)
+        return head_apply(_tree(wts), feats.float(), n_out=2)
 
     @staticmethod
     def backward(ctx, g):
         feats, *wts = ctx.saved_tensors
         need_dx = ctx.needs_input_grad[0]
-        g = g.contiguous()
+        g, x = g.contiguous(), feats.float()
         if feats.device.type == "cpu":
-            dx, grads = head_bwd_plain(_tree(wts), feats, g)
+            dx, grads = head_bwd_plain(_tree(wts), x, g)
         else:
-            dx, grads = head_bwd_cuda(_tree(wts), feats, g, need_dx)
-        return (dx if need_dx else None, *grads)
+            dx, grads = head_bwd_cuda(_tree(wts), x, g, need_dx)
+        # dx in the features' dtype (pallas_head.py:143)
+        return (dx.to(feats.dtype) if need_dx else None, *grads)
 
 
 def head_train(p: Tree, feats: torch.Tensor) -> torch.Tensor:
-    """(..., 16) features -> (..., 2), differentiable in the features and
-    every head parameter; the training head (nn/popcorn.py)."""
+    """(..., 16) features -> (..., 2) float32, differentiable in the
+    features and every head parameter; the training head (nn/popcorn.py).
+    float32 whatever the features' dtype, as fused_head."""
     return _HeadTrain.apply(feats.contiguous(), *_weights(p))

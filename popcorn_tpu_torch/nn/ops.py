@@ -5,6 +5,13 @@ public functions (popcorn_tpu/nn/ops.py), so the two packages compare like
 with like; torch's NCHW convolutions are reached through permutes. These
 are the plain versions: the fused UNet blocks (nn/double_conv.py,
 nn/up_block.py) use them on the CPU and launch CUDA kernels on the card.
+
+``dtype`` (None or torch.bfloat16) is the compute dtype of the JAX
+package's XLA ops: the input and the float32 parameters are cast to it,
+the products accumulate in float32 and the output is rounded to it; the
+bias and the frozen BN are then applied in that dtype. This is the route
+of the trainable UNet blocks (and of the 1x1 output convs); the fused
+kernels round in fewer places, as the JAX package's Pallas kernels do.
 """
 
 from __future__ import annotations
@@ -26,22 +33,31 @@ def to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
-def conv3x3(x: torch.Tensor, p: Params) -> torch.Tensor:
+def _cast(x: torch.Tensor, w: torch.Tensor, dtype):
+    if dtype is None:
+        return x, w
+    return x.to(dtype), w.to(dtype)
+
+
+def conv3x3(x: torch.Tensor, p: Params, dtype=None) -> torch.Tensor:
     """3x3 same-padding convolution (+bias). p['w']: (3,3,Cin,Cout) HWIO."""
-    w = p["w"].permute(3, 2, 0, 1)  # HWIO -> OIHW
-    y = F.conv2d(to_nchw(x), w, padding=1)
-    return to_nhwc(y) + p["b"]
+    x, w = _cast(x, p["w"], dtype)
+    y = F.conv2d(to_nchw(x), w.permute(3, 2, 0, 1), padding=1)  # HWIO -> OIHW
+    return to_nhwc(y) + p["b"].to(y.dtype)
 
 
-def conv1x1(x: torch.Tensor, p: Params) -> torch.Tensor:
+def conv1x1(x: torch.Tensor, p: Params, dtype=None) -> torch.Tensor:
     """1x1 convolution as a channel matmul. p['w']: (Cin, Cout)."""
-    return torch.matmul(x, p["w"]) + p["b"]
+    x, w = _cast(x, p["w"], dtype)
+    y = torch.matmul(x, w)
+    return y + p["b"].to(y.dtype)
 
 
 def frozen_bn(x: torch.Tensor, bn: Params) -> torch.Tensor:
     """Frozen BatchNorm as a per-channel affine (scale, shift folded from
-    the running stats when the weights are loaded, compat/weights.py)."""
-    return x * bn["scale"] + bn["shift"]
+    the running stats when the weights are loaded, compat/weights.py), in
+    the input's dtype."""
+    return x * bn["scale"].to(x.dtype) + bn["shift"].to(x.dtype)
 
 
 def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
@@ -52,14 +68,14 @@ def max_pool_2x2(x: torch.Tensor) -> torch.Tensor:
     return x.amax(dim=(2, 4))
 
 
-def conv_transpose_2x2(x: torch.Tensor, p: Params) -> torch.Tensor:
+def conv_transpose_2x2(x: torch.Tensor, p: Params, dtype=None) -> torch.Tensor:
     """2x2 stride-2 transposed convolution (torch ConvTranspose2d(C, C, 2,
     stride=2)): y[2i+di, 2j+dj, o] = sum_c x[i,j,c] * W[c,di,dj,o] + b[o].
     p['w']: (Cin, 2, 2, Cout)."""
     b, h, w, _ = x.shape
-    cout = p["w"].shape[-1]
-    y = torch.einsum("bhwc,cijo->bhiwjo", x, p["w"])
-    return y.reshape(b, 2 * h, 2 * w, cout) + p["b"]
+    x, wt = _cast(x, p["w"], dtype)
+    y = torch.einsum("bhwc,cijo->bhiwjo", x, wt).reshape(b, 2 * h, 2 * w, wt.shape[-1])
+    return y + p["b"].to(y.dtype)
 
 
 def pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:

@@ -20,6 +20,13 @@ int8 kernels on an unpadded input, and the building extractor too with
 int8 when the caller passes the member's calibrated ``scales`` (the eval
 fold, infer/sliding.py), an unpadded input and H % 4 == W % 4 == 0, and
 float otherwise, as the JAX package's popcorn_forward does.
+
+Compute dtype (``cfg.compute_dtype``, "float32" or "bfloat16", the JAX
+package's rule): in bfloat16 the UNets (member and builder) and the
+eval head compute in bf16 (nn/unet.py, nn/head.py), the training head in
+float32 (as fused_head), and the maps, popcount and losses are float32.
+The static int8 stream quantizes its float32 input and rounds only its
+float features to bf16 (popcorn_tpu/nn/packed.py:482).
 """
 
 from __future__ import annotations
@@ -59,15 +66,20 @@ def reorder_to_dda(x: torch.Tensor, *, s1: bool, s2: bool, nir: bool) -> torch.T
 
 
 QUANTIZE_MODES = ("int8", "int8s", "w4a8")
+COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
+def compute_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
+    """The blocks' compute dtype: None (float32) or torch.bfloat16 (the
+    JAX package's ``dtype = jnp.bfloat16 if cfg.compute_dtype ==
+    'bfloat16' else None``)."""
+    return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
 def check_config(cfg: ModelConfig) -> None:
     """Raise for model options the port does not run, or that conflict."""
-    if cfg.compute_dtype != "float32":
-        raise NotImplementedError(
-            f"compute_dtype={cfg.compute_dtype!r}: the port's kernels take "
-            "float32 only (bf16 is not ported yet)"
-        )
+    if cfg.compute_dtype not in COMPUTE_DTYPES:
+        raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: one of {tuple(COMPUTE_DTYPES)}")
     if cfg.quantize is not None and cfg.quantize not in QUANTIZE_MODES:
         raise ValueError(f"quantize={cfg.quantize!r}: one of {QUANTIZE_MODES} or None")
     if cfg.quantize and cfg.pallas_stream is False:
@@ -126,15 +138,16 @@ def calibrate_member_scales(params: Tree, consts: Tree, x: torch.Tensor, cfg: Mo
 @torch.no_grad()
 def create_building_score(
     builder: Tree, x_input: torch.Tensor, *, s1: bool, s2: bool, nir: bool,
-    quantize: bool = False,
+    quantize: bool = False, dtype=None,
 ) -> torch.Tensor:
     """On-the-fly built-up probability (model/popcorn.py:279-322):
-    reflect-pad 14 px, the frozen building-extractor UNet (dynamic int8
-    blocks with ``quantize``, see ``builder_quantized``), sigmoid, unpad.
-    Returns the (B, H, W) score."""
+    reflect-pad 14 px, the frozen building-extractor UNet in ``dtype``
+    (dynamic int8 blocks with ``quantize``, see ``builder_quantized``),
+    sigmoid in float32, unpad. Returns the (B, H, W) float32 score."""
     xp, pad = add_padding(x_input, force=True)
     x6 = reorder_to_dda(xp, s1=s1, s2=s2, nir=nir)
-    logits = building_logits(builder["params"], builder["bn"], x6, s1=s1, s2=s2, quantize=quantize)
+    logits = building_logits(builder["params"], builder["bn"], x6, s1=s1, s2=s2,
+                             quantize=quantize, dtype=dtype)
     score = torch.sigmoid(logits.float())
     return revert_padding(score, pad)[..., 0]
 
@@ -228,11 +241,12 @@ def popcorn_forward(
     None, 'building_counts', and 'sparsity_mask' when sparse}.
     """
     check_config(cfg)
+    dtype = compute_dtype(cfg)
     x = inputs["input"]
     if "building_counts" not in inputs or cfg.sentinel_buildings:
         building_counts = create_building_score(
             consts["builder"], x, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir,
-            quantize=builder_quantized(cfg, train),
+            quantize=builder_quantized(cfg, train), dtype=dtype,
         )
     else:
         building_counts = inputs["building_counts"]
@@ -262,9 +276,9 @@ def popcorn_forward(
         wb = weight_bits(cfg)
         feats = torch.cat([
             unet_stream_qs(params["unet"]["sar"], consts["unet_bn"]["sar"], x6[..., :SAR_IN],
-                           scales["sar"], wb),
+                           scales["sar"], wb, dtype),
             unet_stream_qs(params["unet"]["opt"], consts["unet_bn"]["opt"], x6[..., SAR_IN:],
-                           scales["opt"], wb),
+                           scales["opt"], wb, dtype),
         ], dim=-1)
     else:
         trainable = train and not unet_no_grad
@@ -272,7 +286,7 @@ def popcorn_forward(
             params["unet"], consts["unet_bn"], x6, s1=cfg.s1, s2=cfg.s2,
             train=trainable, encoder_stop_grad=encoder_no_grad,
             remat=cfg.remat_unet and trainable,
-            quantize=quantize_int8(cfg, train) and unpadded,
+            quantize=quantize_int8(cfg, train) and unpadded, dtype=dtype,
         )
     feats = revert_padding(feats, pad).contiguous()
     if train:

@@ -23,6 +23,11 @@ blocks through XLA convs, not through its Pallas kernels
 The choice follows the explicit ``train``/``encoder_stop_grad`` arguments,
 never a fallback. Tensors are NHWC.
 
+Compute dtype. ``dtype=torch.bfloat16`` casts the stream's input to bf16
+and keeps the blocks' outputs in bf16: kernels A and B round as the JAX
+package's Pallas kernels do, the trainable blocks as its XLA ops do
+(nn/ops.py). Parameters stay float32 and are cast per op.
+
 Quantized eval. ``quantize=True`` (``ModelConfig.quantize == 'int8'``)
 runs the blocks through the dynamic int8 kernels G (DoubleConv) and H (Up
 block), with the JAX engine's shape rule (popcorn_tpu/nn/packed.py::
@@ -42,11 +47,11 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from .double_conv import double_conv as _double_conv_kernel
-from .double_conv import double_conv_plain, double_conv_q, double_conv_qs
+from .double_conv import double_conv_ops, double_conv_q, double_conv_qs
 from .ops import conv1x1, max_pool_2x2
 from .quant import quantize_static
 from .up_block import up_block as _up_block_kernel
-from .up_block import up_block_plain, up_block_q, up_block_qs
+from .up_block import up_block_ops, up_block_q, up_block_qs
 
 Tree = Dict[str, Any]
 
@@ -54,15 +59,15 @@ SAR_IN = 2  # VV, VH (utils/constants.py:176)
 OPT_IN = 4  # B02, B03, B04, B08
 
 
-def double_conv(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
+def double_conv(p: Tree, bn: Tree, x: torch.Tensor, dtype=None) -> torch.Tensor:
     """(conv3x3 -> frozen BN -> ReLU) x 2 through kernel A."""
-    return _double_conv_kernel(p, bn, x.contiguous())
+    return _double_conv_kernel(p, bn, x.contiguous(), dtype)
 
 
-def _up_block(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
+def _up_block(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor, dtype=None) -> torch.Tensor:
     """Up = tconv(x1) -> pad to x2 -> concat[x2, up] -> DoubleConv, through
     kernel B."""
-    return _up_block_kernel(p, bn, x1.contiguous(), x2.contiguous())
+    return _up_block_kernel(p, bn, x1.contiguous(), x2.contiguous(), dtype)
 
 
 def _run(kernel_fn, plain_fn, trainable: bool, remat: bool, *args) -> torch.Tensor:
@@ -103,14 +108,18 @@ def unet_stream(
     encoder_stop_grad: bool = False,
     remat: bool = False,
     quantize: bool = False,
+    dtype=None,
 ) -> torch.Tensor:
-    """One UNet stream, returning the pre-outconv 8ch features.
+    """One UNet stream, returning the pre-outconv 8ch features (in
+    ``dtype``, the compute dtype, or float32).
 
     ``train`` makes the blocks trainable; ``encoder_stop_grad`` (the
     reference's ``encoder_no_grad``, networks.py:124-133) keeps the
     downward path frozen while up2/up1 still train. ``quantize`` (eval
     only) runs the blocks that ``quantized_blocks`` names through the
     dynamic int8 kernels."""
+    if dtype is not None:
+        x = x.to(dtype)
     if quantize and not train:
         n = quantized_blocks(x.shape[1], x.shape[2])
         if n:
@@ -118,25 +127,31 @@ def unet_stream(
                 x1 = _q_double_conv(p["inc"], bn["inc"], x)
                 d1 = _q_double_conv(p["down1"], bn["down1"], max_pool_2x2(x1))
                 d2 = _q_double_conv(p["down2"], bn["down2"], max_pool_2x2(d1))
-                up2 = _q_up_block if n == 5 else _up_block
-                u2 = up2(p["up2"], bn["up2"], d2, d1)
+                if n == 5:
+                    u2 = _q_up_block(p["up2"], bn["up2"], d2, d1)
+                else:
+                    u2 = _up_block(p["up2"], bn["up2"], d2, d1, dtype)
                 return _q_up_block(p["up1"], bn["up1"], u2, x1)
     enc = train and not encoder_stop_grad
-    x1 = _run(double_conv, double_conv_plain, enc, remat, p["inc"], bn["inc"], x)
-    d1 = _run(double_conv, double_conv_plain, enc, remat, p["down1"], bn["down1"], max_pool_2x2(x1))
-    d2 = _run(double_conv, double_conv_plain, enc, remat, p["down2"], bn["down2"], max_pool_2x2(d1))
-    u2 = _run(_up_block, up_block_plain, train, remat, p["up2"], bn["up2"], d2, d1)
-    return _run(_up_block, up_block_plain, train, remat, p["up1"], bn["up1"], u2, x1)
+    dc = (double_conv, double_conv_ops, enc, remat)
+    x1 = _run(*dc, p["inc"], bn["inc"], x, dtype)
+    d1 = _run(*dc, p["down1"], bn["down1"], max_pool_2x2(x1), dtype)
+    d2 = _run(*dc, p["down2"], bn["down2"], max_pool_2x2(d1), dtype)
+    u2 = _run(_up_block, up_block_ops, train, remat, p["up2"], bn["up2"], d2, d1, dtype)
+    return _run(_up_block, up_block_ops, train, remat, p["up1"], bn["up1"], u2, x1, dtype)
 
 
 def unet_stream_qs(
-    p: Tree, bn: Tree, x: torch.Tensor, scales: Dict[str, torch.Tensor], wbits: int = 8
+    p: Tree, bn: Tree, x: torch.Tensor, scales: Dict[str, torch.Tensor], wbits: int = 8,
+    dtype=None,
 ) -> torch.Tensor:
     """One UNet stream end to end in static int8 (the counterpart of
     popcorn_tpu/nn/packed.py::packed_unet_stream_qs): the input quantized
-    at ``scales['in']``, every block through kernel E or F with int8 block
-    I/O, max-pooling on the int8 codes (the max of codes is the code of the
-    max), float32 features out of up1. Needs H % 4 == W % 4 == 0."""
+    at ``scales['in']`` from its float32 value, every block through kernel
+    E or F with int8 block I/O, max-pooling on the int8 codes (the max of
+    codes is the code of the max), float features out of up1: float32,
+    rounded to ``dtype`` when given (the JAX kernel writes them in the
+    compute dtype). Needs H % 4 == W % 4 == 0."""
     if x.shape[1] % 4 or x.shape[2] % 4:
         raise ValueError(f"unet_stream_qs: input {tuple(x.shape)} needs H and W divisible by 4")
     s = scales
@@ -149,8 +164,9 @@ def unet_stream_qs(
                             s["down1_out"], s["down2_y1"], s["down2_out"], wbits)
         u2 = up_block_qs(p["up2"], bn["up2"], d2, d1, s["down2_out"], s["down1_out"],
                          s["up2_up"], s["up2_y1"], s["up2_out"], wbits)
-        return up_block_qs(p["up1"], bn["up1"], u2, x1, s["up2_out"], s["inc_out"],
-                           s["up1_up"], s["up1_y1"], None, wbits)
+        u1 = up_block_qs(p["up1"], bn["up1"], u2, x1, s["up2_out"], s["inc_out"],
+                         s["up1_up"], s["up1_y1"], None, wbits)
+    return u1 if dtype is None else u1.to(dtype)
 
 
 def dual_stream_features(
@@ -164,12 +180,14 @@ def dual_stream_features(
     encoder_stop_grad: bool = False,
     remat: bool = False,
     quantize: bool = False,
+    dtype=None,
 ) -> torch.Tensor:
     """Fused features: concat of the active streams' outputs.
 
     x6 is the 6-channel DDA-ordered input [VV, VH, B02, B03, B04, B08].
     """
-    kw = dict(train=train, encoder_stop_grad=encoder_stop_grad, remat=remat, quantize=quantize)
+    kw = dict(train=train, encoder_stop_grad=encoder_stop_grad, remat=remat, quantize=quantize,
+              dtype=dtype)
     feats = []
     if s1:
         feats.append(unet_stream(p["sar"], bn["sar"], x6[..., :SAR_IN], **kw))
@@ -180,15 +198,17 @@ def dual_stream_features(
 
 def building_logits(
     p: Tree, bn: Tree, x6: torch.Tensor, *, s1: bool = True, s2: bool = True,
-    quantize: bool = False,
+    quantize: bool = False, dtype=None,
 ) -> torch.Tensor:
     """Built-up logits (networks.py:213-237): fusion_out over the fused
-    16ch features with both streams, else that stream's out conv.
-    ``quantize``: the dynamic int8 blocks, as in ``unet_stream``."""
+    16ch features with both streams, else that stream's out conv, in
+    ``dtype``. ``quantize``: the dynamic int8 blocks, as in
+    ``unet_stream``."""
+    kw = dict(quantize=quantize, dtype=dtype)
     if s1 and s2:
-        return conv1x1(dual_stream_features(p, bn, x6, quantize=quantize), p["fusion_out"])
+        return conv1x1(dual_stream_features(p, bn, x6, **kw), p["fusion_out"], dtype)
     if s1:
-        feats = unet_stream(p["sar"], bn["sar"], x6[..., :SAR_IN], quantize=quantize)
-        return conv1x1(feats, p["sar_out"])
-    feats = unet_stream(p["opt"], bn["opt"], x6[..., SAR_IN:], quantize=quantize)
-    return conv1x1(feats, p["opt_out"])
+        feats = unet_stream(p["sar"], bn["sar"], x6[..., :SAR_IN], **kw)
+        return conv1x1(feats, p["sar_out"], dtype)
+    feats = unet_stream(p["opt"], bn["opt"], x6[..., SAR_IN:], **kw)
+    return conv1x1(feats, p["opt_out"], dtype)

@@ -4,9 +4,16 @@ A 2x2 stride-2 transposed conv of the coarse input x1, zero-padded to the
 skip x2's size, then a DoubleConv over [skip | up] (concat order of
 networks.py:318), on unpacked NHWC tensors.
 
-Kernel B (csrc/up_block.cu), float32: counterpart of
+Kernel B (csrc/up_block.cu), float32 or bfloat16: counterpart of
 popcorn_tpu/nn/pallas_conv.py::fused_up_block (``_up_block_kernel``); its
-two convs run on the tensor cores in the float32-accurate 3xTF32 form.
+two convs run on the tensor cores, in the float32-accurate 3xTF32 form,
+or in bfloat16 with one TF32 MMA a product (a bf16 value is exact in
+TF32). In bfloat16 it rounds where that kernel rounds: x1, the skip and
+the weights are bf16, the upsampled tile is rounded to bf16 after its
+bias (pallas_conv.py:521), y1 on chip and the output too; sums and
+affines are float32. ``up_block_ops`` is the block as nn/ops.py ops (the
+JAX package's XLA route, popcorn_tpu/nn/unet.py::_up_block): the route of
+a block that trains.
 
 Kernel F (csrc/up_block_qs.cu), static int8: counterpart of
 ``fused_up_block_qs`` (``_up_block_kernel_qs``). int8 codes in (x1 at
@@ -38,7 +45,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .double_conv import double_conv_plain, fold_affine
+from .double_conv import KERNEL_SYMBOLS, double_conv_ops, double_conv_plain, fold_affine, storage_dtype
 from .ops import conv_transpose_2x2, pad_to_match
 from .quant import (
     QMAX,
@@ -55,27 +62,50 @@ from .quant import (
 
 Tree = Dict[str, Any]
 
-# launches of kernels B, F and H, each counted where its wrapper launches it
+# launches of kernels B (float32 and bf16 modes apart), F and H, each
+# counted where its wrapper launches it
 launches = 0
+launches_bf16 = 0
 launches_qs = 0
 launches_q = 0
 
 
-def up_block_plain(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Up = tconv(x1) -> pad to x2 -> concat[x2, up] -> DoubleConv, in plain
-    PyTorch (popcorn_tpu/nn/unet.py::_up_block)."""
-    up = pad_to_match(conv_transpose_2x2(x1, p["tconv"]), x2)
-    return double_conv_plain(p["conv"], bn, torch.cat([x2, up], dim=-1))
+def up_block_ops(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Up = tconv(x1) -> pad to x2 -> concat[x2, up] -> DoubleConv as
+    nn/ops.py ops in ``dtype`` (popcorn_tpu/nn/unet.py::_up_block).
+    Differentiable: the route of a block that trains."""
+    up = pad_to_match(conv_transpose_2x2(x1, p["tconv"], dtype), x2)
+    return double_conv_ops(p["conv"], bn, torch.cat([x2.to(up.dtype), up], dim=-1), dtype)
+
+
+def up_block_plain(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor, dtype=None) -> torch.Tensor:
+    """Kernel B in plain PyTorch, in the compute dtype ``dtype`` or x2's,
+    rounded where pallas_conv.py::_up_block_kernel rounds (module
+    docstring; every rounding is a no-op in float32)."""
+    cdt = dtype or x2.dtype
+    b, h, w, _ = x1.shape
+    wt = p["tconv"]["w"].to(cdt).float()
+    up = torch.einsum("bhwc,cijo->bhiwjo", x1.to(cdt).float(), wt)
+    up = up.reshape(b, 2 * h, 2 * w, wt.shape[-1]) + p["tconv"]["b"].float()
+    up = pad_to_match(up.to(cdt), x2)
+    return double_conv_plain(p["conv"], bn, torch.cat([x2.to(cdt), up], dim=-1), cdt)
 
 
 def up_block_cuda(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Launch kernel B on contiguous float32 NHWC CUDA tensors."""
-    global launches
-    wt, bt = p["tconv"]["w"], p["tconv"]["b"]
-    w1, w2 = p["conv"]["conv1"]["w"], p["conv"]["conv2"]["w"]
+    """Launch kernel B on contiguous float32 or bfloat16 NHWC CUDA tensors
+    (x1 and x2 of one dtype); the weights are rounded to it, the output is
+    in it."""
+    global launches, launches_bf16
+    dt = storage_dtype("up_block", x2)
+    wt, w1, w2 = (w.to(dt).contiguous() for w in (
+        p["tconv"]["w"], p["conv"]["conv1"]["w"], p["conv"]["conv2"]["w"]))
+    bt = p["tconv"]["b"].float().contiguous()
     s1, t1 = fold_affine(p["conv"]["conv1"]["b"], bn["bn1"])
     s2, t2 = fold_affine(p["conv"]["conv2"]["b"], bn["bn2"])
-    cuda_lib.require_cuda_f32("up_block", x1, x2, wt, bt, w1, s1, t1, w2, s2, t2)
+    f32 = torch.float32
+    cuda_lib.require_cuda("up_block", [
+        (x1, dt), (x2, dt), (wt, dt), (bt, f32), (w1, dt), (s1, f32), (t1, f32), (w2, dt),
+        (s2, f32), (t2, f32)])
     b, h, w, c1 = x1.shape
     b2, hh, ww, cs = x2.shape
     cu, cm, cout = wt.shape[3], w1.shape[3], w2.shape[3]
@@ -93,13 +123,13 @@ def up_block_cuda(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torc
     oy, ox = (hh - 2 * h) // 2, (ww - 2 * w) // 2
     if oy < 0 or ox < 0:
         raise ValueError(f"up_block: coarse {(h, w)} upsamples past the skip {(hh, ww)}")
-    out = torch.empty((b, hh, ww, cout), device=x2.device, dtype=torch.float32)
+    out = torch.empty((b, hh, ww, cout), device=x2.device, dtype=dt)
     if out.numel() == 0:
         return out
-    if x2.data_ptr() % 16:  # the kernel stages the skip by 16-byte cp.async
+    if x2.data_ptr() % 16:  # the kernel stages the skip by 16-byte loads
         x2 = x2.clone()
     fn = cuda_lib.function(
-        "up_block", "popcorn_up_block_f32",
+        "up_block", f"popcorn_up_block_{KERNEL_SYMBOLS[dt]}",
         [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
     )
     P = cuda_lib.ptr
@@ -109,12 +139,18 @@ def up_block_cuda(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torc
         cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(rc, "up_block")
-    launches += 1
+    if dt == torch.bfloat16:
+        launches_bf16 += 1
+    else:
+        launches += 1
     return out
 
 
-def up_block(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """The Up block: plain PyTorch on the CPU, kernel B on CUDA."""
+def up_block(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The Up block in the compute dtype ``dtype`` (default x2's; both
+    inputs are cast to it): plain PyTorch on the CPU, kernel B on CUDA."""
+    cdt = dtype or x2.dtype
+    x1, x2 = x1.to(cdt), x2.to(cdt)
     if x2.device.type == "cpu":
         return up_block_plain(p, bn, x1, x2)
     return up_block_cuda(p, bn, x1, x2)
@@ -323,9 +359,14 @@ def up_block_q_cuda(wtq, dt, tt, waq, da, wbq, db, t1, w2q, d2, t2,
 
 
 def up_block_q(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Dynamic int8 Up block, float32 in and out: plain PyTorch on the CPU,
-    kernel H on CUDA."""
+    """Dynamic int8 Up block, out in x2's dtype: plain PyTorch on the CPU,
+    kernel H on CUDA. Kernel H reads and writes float32: bfloat16 inputs
+    are widened (exactly) and the output rounded to bf16, the JAX kernel's
+    rounding (nn/double_conv.py::double_conv_q)."""
     args = q_args(p, bn)
+    x1f, x2f = x1.float(), x2.float()
     if x2.device.type == "cpu":
-        return up_block_q_plain(*args, x1, x2)
-    return up_block_q_cuda(*args, x1, x2)
+        out = up_block_q_plain(*args, x1f, x2f)
+    else:
+        out = up_block_q_cuda(*args, x1f, x2f)
+    return out.to(x2.dtype)

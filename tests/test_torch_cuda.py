@@ -16,7 +16,13 @@ which the GPU machine lacks, so run it there as
     python -m pytest --noconftest tests/test_torch_cuda.py -q
 
 Tolerance rtol=atol=1e-4, as chip_smoke.py: float32 on both sides with
-different summation orders (TF32 off for the plain versions)."""
+different summation orders (TF32 off for the plain versions). The bf16
+modes of kernels A, B and C are held to their plain versions, which round
+in the same places, at chip_smoke.py's BF16_ULP bound: |got - ref| <=
+2^-7 (|ref| + max|ref|), fewer than 1% of the values differing (float32
+sums in another order can flip a bf16 rounding). Kernel C's persistent
+grid of 16-pixel warp strips is held at 1, 15, 16 and 17 pixels and at
+more strips than its warps."""
 
 import pytest
 import torch
@@ -123,6 +129,72 @@ def _head(g, dev):
         name: {"w": _n(g, dev, ci, co, scale=ci**-0.5), "b": _n(g, dev, co, scale=0.1)}
         for name, ci, co in zip(C.HEAD_LAYERS, dims[:-1], dims[1:])
     }
+
+
+def _bf16_close(got, ref):
+    assert got.dtype == ref.dtype == torch.bfloat16 and got.shape == ref.shape
+    got, ref = got.float(), ref.float()
+    err = (got - ref).abs()
+    assert bool((err <= 2.0**-7 * (ref.abs() + ref.abs().max())).all()), float(err.max())
+    assert float((got != ref).float().mean()) < 0.01
+
+
+@pytest.mark.parametrize("cin,cm,cout", [(2, 8, 8), (4, 8, 8), (8, 16, 16), (16, 16, 16)])
+def test_double_conv_kernel_bf16_odd_batch(dev, cin, cm, cout):
+    g = torch.Generator().manual_seed(40 + cin)
+    p, bn = _dc_params(g, dev, cin, cm, cout)
+    x = _n(g, dev, 2, 37, 19, cin).to(torch.bfloat16)
+    before = A.launches_bf16
+    got = A.double_conv(p, bn, x)
+    assert A.launches_bf16 == before + 1
+    _bf16_close(got, A.double_conv_plain(p, bn, x))
+
+
+@pytest.mark.parametrize(
+    "c1,cs,skip_hw,coarse_hw",
+    [(16, 16, (37, 19), (18, 9)), (8, 8, (37, 19), (18, 9)), (8, 8, (40, 22), (18, 9)),
+     (16, 16, (1038, 1038), (519, 519))],
+)
+def test_up_block_kernel_bf16_pad_ring(dev, c1, cs, skip_hw, coarse_hw):
+    g = torch.Generator().manual_seed(50 + c1 + skip_hw[0])
+    conv, bn = _dc_params(g, dev, cs + c1, 8, 8)
+    p = {"tconv": {"w": _n(g, dev, c1, 2, 2, c1, scale=0.3), "b": _n(g, dev, c1)}, "conv": conv}
+    x1 = _n(g, dev, 2, *coarse_hw, c1).relu().to(torch.bfloat16)
+    x2 = _n(g, dev, 2, *skip_hw, cs).relu().to(torch.bfloat16)
+    before = B.launches_bf16
+    got = B.up_block(p, bn, x1, x2)
+    assert B.launches_bf16 == before + 1
+    _bf16_close(got, B.up_block_plain(p, bn, x1, x2))
+
+
+@pytest.mark.parametrize("lead", [(1,), (15,), (16,), (17,), (3, 11, 31), (132 * 2 * 8 * 16 * 3 + 5,)],
+                         ids=["n1", "strip_minus_1", "one_strip", "strip_plus_1", "3x11x31",
+                              "more_strips_than_warps"])
+def test_head_kernel_strips(dev, lead):
+    """Kernel C's warp strips in both modes: float32 with one and two
+    channels, bf16 with one."""
+    g = torch.Generator().manual_seed(60 + lead[0])
+    head = _head(g, dev)
+    feats = _n(g, dev, *lead, 16).relu()
+    for n_out in (1, 2):
+        torch.testing.assert_close(C.head_cuda(head, feats, n_out), C.head_plain(head, feats, n_out),
+                                   **TOL)
+    fb = feats.to(torch.bfloat16)
+    before = C.launches_bf16
+    got = C.head_apply(head, fb, 1)
+    assert C.launches_bf16 == before + 1
+    _bf16_close(got, C.head_plain(head, fb, 1))
+
+
+def test_head_kernel_takes_a_misaligned_view(dev):
+    """Features whose view starts 8 bytes off the 16-byte alignment of the
+    kernel's loads give the same result as a copy."""
+    g = torch.Generator().manual_seed(8)
+    head = _head(g, dev)
+    buf = _n(g, dev, 333 * 16 + 2)
+    feats = buf[2:].view(333, 16)
+    assert feats.data_ptr() % 16 == 8
+    assert torch.equal(C.head_cuda(head, feats, 2), C.head_cuda(head, feats.clone(), 2))
 
 
 @pytest.mark.parametrize("lead", [(1,), (1023,), (1, 7, 13), (65,), (2, 64, 97)],

@@ -45,7 +45,7 @@ QUANT_R2_BOUND = 0.02
 PATCH, OVERLAP = 96, 16
 EVAL_FLAGS = ["-occmodel", "-senbuilds", "-S2", "-NIR", "-S1", "-treg", "rwa", "-tlevel",
               "coarse", "--device", "cpu", "-w", "1", "--patchsize", str(PATCH),
-              "--patch_overlap", str(OVERLAP)]
+              "--patch_overlap", str(OVERLAP), "--compute_dtype", "float32"]
 
 
 def _stream_params(key):
@@ -233,6 +233,7 @@ def test_train_quantize_eval_keeps_steps_float_and_tests_quantized(tmp_path, mon
     args = train_parser().parse_args([
         "-S2", "-NIR", "-S1", "-treg", "rwa", "-tregtrain", "rwa", "-occmodel", "-senbuilds",
         "-pret", "-binit", "0.9407", "-tlevel", "coarse", "--quantize_eval", "int8s",
+        "--compute_dtype", "float32",
     ])
     mcfg = model_config_from_args(args)
     assert mcfg.quantize == "int8s"

@@ -31,7 +31,7 @@ from popcorn_tpu_torch.train.trainer import Trainer
 
 torch.set_num_threads(1)
 FLAGS = ["-S2", "-NIR", "-S1", "-treg", "rwa", "-tregtrain", "rwa", "-occmodel",
-         "-senbuilds", "-pret", "-binit", "0.9407", "-tlevel", "coarse"]
+         "-senbuilds", "-pret", "-binit", "0.9407", "-tlevel", "coarse", "--compute_dtype", "float32"]
 
 
 @pytest.fixture(scope="module")
