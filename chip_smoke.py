@@ -6,13 +6,15 @@ Phases, each printing one JSON line:
                TF32 off, so the plain versions are true float32;
   2. build   — compiles every kernel of csrc/ with nvcc (all at once),
                then one build_report line a source: registers, spills
-               and shared memory of each kernel (ptxas -v), and for B, C
-               and D the tensor-core MMAs (HMMA) in their SASS, which
-               must be there in every instantiation;
+               and shared memory of each kernel (ptxas -v), and for A-D
+               the tensor-core MMAs (HMMA) in their SASS, which must be
+               there in every instantiation;
   3. kernels — each kernel's wrapper at the main path's shapes (2048^2
                patch, real channel widths, the repo's DDA weights) held
                against its plain PyTorch version on the same inputs, with
-               kernel, plain and library times and the least time the
+               kernel (the wrapper's call, host work included), device
+               (the kernel alone, from a profiler trace), plain and
+               library times and the least time the
                card could take (bound; for A-D at float32 accuracy on the
                tensor cores, with the CUDA-core figure beside it as
                bound_fp32_ms); kernels A, B and C again in their bf16
@@ -33,7 +35,11 @@ Phases, each printing one JSON line:
                MAIN_LAUNCHES per patch, then once with --compute_dtype
                float32 (the float32 modes, the same counts): the two maps
                correlated >= DTYPE_MAP_CORR, AdjCensus r2 within
-               DTYPE_R2_TOL;
+               DTYPE_R2_TOL; each with the sliding window's wall split
+               (feed wait, dispatch, finalize); then the bf16 eval with
+               its maps stitched on the host (as above the device-stitch
+               budget), its GeoTIFFs within STITCH_RTOL and census
+               metrics within STITCH_STAT_TOL of the first run's;
   6. quant   — the same eval at the default dtype with --quantize int8s,
                w4a8 and int8, then int8 with pallas_stream=True (the
                builder quantized too) through the Evaluator, then
@@ -68,6 +74,11 @@ result. Run from the repository root:
 
     python3 chip_smoke.py            # the whole run
     python3 chip_smoke.py --kernels  # phases 1-3 only (no result line)
+    python3 chip_smoke.py --kernels --ab DIR
+        # also times, case by case, the kernels built from the csrc/ of
+        # another checkout DIR (an earlier commit, unpacked by git archive)
+        # under the same wrappers: parent, change, change, parent, as
+        # parent_* fields of each kernel line (its outputs are not checked)
 """
 
 from __future__ import annotations
@@ -87,10 +98,9 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # Published peaks of one H100 SXM (NVIDIA data sheet): FP32 on the CUDA
 # cores, dense TF32 and INT8 on the tensor cores, and HBM3 bandwidth. The
 # float kernels A-D are held to the least time at float32 accuracy: three
-# dense TF32 passes a product (the 3xTF32 split, which B and D run), with
-# the FP32 CUDA-core figure beside it (bound_fp32_ms: what A and C, FMA
-# chains on the CUDA cores, are designed against). The int8 kernels E-H
-# are held to the card's int8 peak, though they run __dp4a on the CUDA
+# dense TF32 passes a product (the 3xTF32 split, which they run), with
+# the FP32 CUDA-core figure beside it (bound_fp32_ms). The int8 kernels
+# E-H are held to the card's int8 peak, though they run __dp4a on the CUDA
 # cores.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
@@ -98,12 +108,12 @@ TF32_PASSES = 3
 PEAK_INT8_OPS = 1979e12
 PEAK_BF16_FLOPS = 989e12
 # what each float kernel's float32 mode is designed against
-DESIGNED_AGAINST = {"double_conv": "fp32", "up_block": "tf32x3", "head": "tf32x3",
+DESIGNED_AGAINST = {"double_conv": "tf32x3", "up_block": "tf32x3", "head": "tf32x3",
                     "head_bwd": "tf32x3"}
 # the kernels that must hold tensor-core MMAs (HMMA in their SASS), by
 # source and the name of their kernel functions
-TENSOR_CORE_KERNELS = {"up_block": "up_block_kernel", "head": "head_kernel",
-                       "head_bwd": "head_bwd_kernel"}
+TENSOR_CORE_KERNELS = {"double_conv": "double_conv_kernel", "up_block": "up_block_kernel",
+                       "head": "head_kernel", "head_bwd": "head_bwd_kernel"}
 PEAK_HBM_BYTES = 3.35e12
 # no PyTorch call computes an int8 convolution (cuDNN's int8 path is not
 # reachable from torch), so the int8 kernels have no library yardstick
@@ -137,8 +147,14 @@ QUANT_LAUNCHES = {
 # map moves by the map's rounding only
 DTYPE_MAP_CORR = 0.999
 DTYPE_R2_TOL = 1e-3
+# main: the eval stitched on the host against the same eval stitched on the
+# card: the same patch maps added in the same order, in float32 on both
+# sides (tests/test_multichip.py::test_device_stitch_matches_host's rtol),
+# and census metrics of the same maps
+STITCH_RTOL = 1e-5
+STITCH_STAT_TOL = 1e-6
 # kernel vs plain version: float32 in both with different summation
-# orders (cuDNN/cuBLAS with TF32 off vs per-pixel FMA chains); observed
+# orders (cuDNN/cuBLAS with TF32 off vs 3xTF32 tensor-core sums); observed
 # errors are ~1e-6 relative, so 1e-4 leaves room and still catches any
 # indexing or masking fault (those are O(1))
 RTOL = ATOL = 1e-4
@@ -239,6 +255,34 @@ def float_bounds(kernel: str, flops: float, nbytes: float) -> dict:
             "ops_ms": TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3}
 
 
+def dev_us(e) -> float:
+    """A profiler event's own device time in microseconds."""
+    return e.self_device_time_total if hasattr(e, "self_device_time_total") else e.self_cuda_time_total
+
+
+def device_ms(fn, function: str, reps: int = KERNEL_REPS):
+    """The device time a call of ``function`` (a part of the kernel's name)
+    takes, from a torch.profiler trace over ``reps`` warmed calls of
+    ``fn``: the kernel alone, without the wrapper's host work and its small
+    conversion kernels, which time_ms counts where the kernel is faster
+    than the host. None if the trace holds no such kernel: it measures, it
+    checks nothing."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    mine = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and function in e.key]
+    if not mine:
+        return None
+    return sum(dev_us(e) for e in mine) / 1e3 / reps
+
+
 def profile_steps(case: str, run, step_ms: float, reps: int = 3) -> dict:
     """One torch.profiler trace over ``reps`` calls of the warmed ``run``:
     the device's busy time a call (the sum of its kernels and copies, which
@@ -249,9 +293,6 @@ def profile_steps(case: str, run, step_ms: float, reps: int = 3) -> dict:
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
-
-    def dev_us(e):
-        return e.self_device_time_total if hasattr(e, "self_device_time_total") else e.self_cuda_time_total
 
     torch.cuda.synchronize()
     t = time.perf_counter()
@@ -309,6 +350,8 @@ def compare(got, ref, name: str):
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="stop after the kernel checks")
+    ap.add_argument("--ab", metavar="DIR", default=None,
+                    help="also time the kernels of the checkout DIR in each kernel case")
     args = ap.parse_args()
 
     import torch
@@ -339,7 +382,7 @@ def main() -> None:
     secs = cuda_lib.build(force=True)
     emit({"phase": "build", "sources": list(cuda_lib.KERNEL_SOURCES), "seconds": round(secs, 3)})
     # registers, spills and shared memory of every kernel (ptxas -v), and
-    # the tensor-core MMAs in the SASS of B and D
+    # the tensor-core MMAs in the SASS of A-D
     for name in cuda_lib.KERNEL_SOURCES:
         rec = {"phase": "build_report", "source": name,
                "ptxas": cuda_lib.ptxas_usage(cuda_lib.build_logs[name])}
@@ -351,6 +394,44 @@ def main() -> None:
                 emit(rec)
                 raise AssertionError(f"csrc/{name}.cu: a kernel holds no tensor-core MMA: {hmma}")
         emit(rec)
+
+    # the other checkout's kernels, for --ab: built from its csrc/ with the
+    # same flags, loaded in place of this checkout's around a timing
+    ab_libs = {}
+    if args.ab is not None:
+        import ctypes
+
+        ab_dir = os.path.join(os.path.abspath(args.ab), "popcorn_tpu_torch", "csrc")
+        out_dir = os.path.join(cuda_lib.BUILD_DIR, "ab")
+        os.makedirs(out_dir, exist_ok=True)
+        procs = {n: subprocess.Popen([cuda_lib._nvcc(), *cuda_lib.NVCC_FLAGS, "-o",
+                                      os.path.join(out_dir, f"lib{n}.so"),
+                                      os.path.join(ab_dir, f"{n}.cu")],
+                                     stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for n in cuda_lib.KERNEL_SOURCES}
+        for n, proc in procs.items():
+            log, _ = proc.communicate()
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed for {ab_dir}/{n}.cu:\n{log}")
+            ab_libs[n] = ctypes.CDLL(os.path.join(out_dir, f"lib{n}.so"))
+        emit({"phase": "ab_build", "dir": args.ab, "sources": list(ab_libs)})
+
+    def ab_times(source, fn, function):
+        """Wrapper and device times of ``fn`` with the other checkout's
+        library of ``source`` and with this one's, in the order parent,
+        change, change, parent: the wrappers find a library in cuda_lib's
+        table of loaded ones, where the other one stands in for a timing."""
+        own = cuda_lib.load(source)
+        times = {"parent": [], "change": []}
+        for side in ("parent", "change", "change", "parent"):
+            cuda_lib._libs[source] = ab_libs[source] if side == "parent" else own
+            try:
+                times[side].append((time_ms(fn), device_ms(fn, function)))
+            finally:
+                cuda_lib._libs[source] = own
+            torch.cuda.synchronize()
+        return {f"{side}_{k}": [t[i] for t in v] for side, v in times.items()
+                for i, k in enumerate(("kernel_ms", "device_ms"))}
 
     # --------------------------------------------------------------- 3. kernels
     import torch.nn.functional as F
@@ -442,7 +523,10 @@ def main() -> None:
             max_abs, max_rel, share = compare(got, ref, name)
         bf16 = got.dtype == torch.bfloat16
         del got, ref
+        function = kernel.replace("_bf16", "") + "_kernel"
         k_ms = time_ms(kern_fn)
+        d_ms = device_ms(kern_fn, function)
+        ab = ab_times(kernel.replace("_bf16", ""), kern_fn, function) if ab_libs else {}
         p_ms = time_ms(plain_fn)
         l_ms = time_ms(lib_fn) if lib_fn is not None else None
         if peak is None:  # a float32 kernel (A-D)
@@ -456,8 +540,8 @@ def main() -> None:
         case = {
             "phase": "kernel", "kernel": kernel, "case": name, "per_member_calls": mult,
             "max_abs_err": max_abs, "max_rel_err": max_rel, "diff_share": share, **tol,
-            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
-            **bounds, "gflop": flops / 1e9, "mbytes": nbytes / 1e6,
+            "kernel_ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            **bounds, "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **ab,
         }
         if lib_fn is None:
             case["library_note"] = NO_INT8_LIBRARY
@@ -603,13 +687,14 @@ def main() -> None:
             raise AssertionError(f"{name}: kernel D disagrees with its plain version: {stats_d}")
         del near
         k_ms = time_ms(lambda x=x, gout=gout: C.head_bwd_cuda(head, x, gout))
+        d_ms = device_ms(lambda x=x, gout=gout: C.head_bwd_cuda(head, x, gout), "head_bwd_kernel")
         p_ms = time_ms(lambda x=x, gout=gout: C.head_bwd_plain(head, x, gout))
         l_ms = time_ms(head_bwd_library(x, gout))
         case = {
             "phase": "kernel", "kernel": "head_bwd", "case": name, "per_member_calls": mult,
             **stats_d, "rtol": RTOL, "atol": ATOL, "norm_rtol": NORM_RTOL,
             "raw_norm_rtol": RAW_NORM_RTOL,
-            "kernel_ms": k_ms, "plain_ms": p_ms, "library_ms": l_ms,
+            "kernel_ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "library_ms": l_ms,
             **float_bounds("head_bwd", flops_px * npx, 4.0 * npx * (16 + 2 + 16) + wbytes * 2),
             "gflop": flops_px * npx / 1e9,
             "mbytes": (4.0 * npx * (16 + 2 + 16) + wbytes * 2) / 1e6,
@@ -813,13 +898,14 @@ def main() -> None:
 
         n_patches = 4  # patch grid of a 2304x2560 region at 2048/128
 
-        def run_eval(tag, extra=(), want=None, config=None):
+        def run_eval(tag, extra=(), want=None, config=None, timings=None):
             """One eval of the 5 members, from a folder of links to them
             where it writes its outputs: through the eval CLI with the
             ``extra`` flags, or through the Evaluator with ``config`` (a
             function of the CLI's ModelConfig). Launch counts are checked
-            against ``want`` per patch. Returns the stats, wall seconds,
-            launches and the output folder's glob."""
+            against ``want`` per patch; ``timings`` receives the sliding
+            window's split. Returns the stats, wall seconds, launches and
+            the output folder's glob."""
             from popcorn_tpu_torch.cli.args import eval_config_from_args, eval_parser, model_config_from_args
             from popcorn_tpu_torch.config import DataPaths
             from popcorn_tpu_torch.infer.evaluator import Evaluator
@@ -835,11 +921,12 @@ def main() -> None:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if config is None:
-                out = eval_cli.main(argv)
+                out = eval_cli.main(argv, timings=timings)
             else:
                 a = eval_parser().parse_args(argv)
                 out = Evaluator(DataPaths(data), config(model_config_from_args(a)),
-                                eval_config_from_args(a), device=dev).test_target(save=True)
+                                eval_config_from_args(a), device=dev).test_target(
+                                    save=True, timings=timings)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             got_l = read_launches()
@@ -850,8 +937,9 @@ def main() -> None:
             check_eval(out, folder_glob)
             return out, secs, got_l, folder_glob
 
-        def read_map(folder_glob):
-            with GeoTIFF(os.path.join(glob.glob(folder_glob)[0], "rwa_predictions.tif")) as gt:
+        def read_map(folder_glob, tag=""):
+            path = os.path.join(glob.glob(folder_glob)[0], f"rwa_predictions{tag}.tif")
+            with GeoTIFF(path) as gt:
                 return gt.read(1, squeeze=True).astype(np.float64)
 
         def adj_r2(st):
@@ -859,12 +947,32 @@ def main() -> None:
 
         # the CLI's default dtype (bf16), then float32
         torch.cuda.reset_peak_memory_stats(dev)
-        stats, wall, launches, main_glob = run_eval("main", want=MAIN_LAUNCHES)
+        split, split32, split_host = {}, {}, {}
+        stats, wall, launches, main_glob = run_eval("main", want=MAIN_LAUNCHES, timings=split)
         peak = torch.cuda.max_memory_allocated(dev)
         main_map = read_map(main_glob)
         want32 = {k.replace("_bf16", ""): v for k, v in MAIN_LAUNCHES.items()}
         stats32, wall32, launches32, glob32 = run_eval(
-            "main_float32", ("--compute_dtype", "float32"), want32)
+            "main_float32", ("--compute_dtype", "float32"), want32, timings=split32)
+        # the bf16 eval again with its maps stitched on the host, as a
+        # region above the device-stitch budget would have them (the budget
+        # set to 0): the same forward, so the same maps and census metrics
+        from popcorn_tpu_torch.infer import sliding
+        budget = sliding._DEVICE_STITCH_BUDGET_BYTES
+        sliding._DEVICE_STITCH_BUDGET_BYTES = 0
+        try:
+            stats_h, wall_h, _, glob_h = run_eval("main_host_stitch", want=MAIN_LAUNCHES,
+                                                  config=lambda c: c, timings=split_host)
+        finally:
+            sliding._DEVICE_STITCH_BUDGET_BYTES = budget
+        stitch_diff = {}
+        for tag in ("", "STD", "SCALE_rwa", "SCALE_STD", "ADJ_rwa"):
+            a_h, a_d = read_map(glob_h, tag), read_map(main_glob, tag)
+            stitch_diff[tag or "map"] = float(np.abs(a_h - a_d).max() / max(np.abs(a_d).max(), 1e-30))
+        stat_diff = max(abs(stats_h[k] - stats[k]) for k in stats)
+        if max(stitch_diff.values()) > STITCH_RTOL or stat_diff > STITCH_STAT_TOL:
+            raise AssertionError(f"host-stitched eval: map differences {stitch_diff}, "
+                                 f"census metrics differ by up to {stat_diff}")
         dtype_corr = float(np.corrcoef(main_map.ravel(), read_map(glob32).ravel())[0, 1])
         dtype_r2 = {k: v - adj_r2(stats32)[k] for k, v in adj_r2(stats).items()}
         r2 = stats["Population_AdjCensus_rwa_coarse/r2"]
@@ -874,9 +982,13 @@ def main() -> None:
             "compute_dtype": "bfloat16", "wall_s": wall, "patches_per_s": n_patches / wall,
             "peak_mem_bytes": peak, "launches": launches,
             "adj_coarse_r2": r2, "main_coarse_r2": stats["Population_MainCensus_rwa_coarse/r2"],
+            "timings": split["rwa"],
             "float32": {"wall_s": wall32, "patches_per_s": n_patches / wall32,
-                        "launches": launches32,
+                        "launches": launches32, "timings": split32["rwa"],
                         "adj_coarse_r2": stats32["Population_AdjCensus_rwa_coarse/r2"]},
+            "host_stitch": {"wall_s": wall_h, "timings": split_host["rwa"],
+                            "max_rel_diff": stitch_diff, "census_max_abs_diff": stat_diff,
+                            "rtol": STITCH_RTOL, "census_tol": STITCH_STAT_TOL},
             "map_corr_bf16_float32": dtype_corr, "map_corr_min": DTYPE_MAP_CORR,
             "adj_r2_deltas": dtype_r2, "adj_r2_tol": DTYPE_R2_TOL,
         })
@@ -1205,11 +1317,13 @@ def main() -> None:
         b_ops = sum(c["ops_ms"] * c["per_member_calls"] for c in on_path)
         b_bytes = sum(c["mbytes"] * 1e6 * c["per_member_calls"] for c in on_path) / PEAK_HBM_BYTES * 1e3
         no_lib = any(c["library_ms"] is None for c in on_path)
+        no_dev = any(c["device_ms"] is None for c in on_path)
         entry = {
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
             "launches": launches[kname],
             "max_abs_err": max(c["max_abs_err"] for c in mine),
-            "ms": tot("kernel_ms"), "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
+            "ms": tot("kernel_ms"), "device_ms": None if no_dev else tot("device_ms"),
+            "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
             "library_ms": None if no_lib else tot("library_ms"),
         }

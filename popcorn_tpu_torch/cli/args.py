@@ -39,53 +39,20 @@ def _add_common(p: argparse.ArgumentParser):
                    help="torch device: 'cuda' (default; raises without a card) or 'cpu'")
 
 
-def eval_parser() -> argparse.ArgumentParser:
-    p = argparse.ArgumentParser(
-        description="POPCORN ensemble evaluation (PyTorch/CUDA port)",
-        fromfile_prefix_chars="@",
-    )
-    _add_common(p)
-    p.add_argument("-r", "--resume", nargs="+", required=True,
-                   help="ensemble member checkpoints (.pth in the reference format)")
-    p.add_argument("-fs", "--fourseasons", action="store_true")
-    p.add_argument("--seed", type=int, default=1610)
-    p.add_argument("--save-dir", dest="save_dir", default="./results")
-    p.add_argument("-w", "--num_workers", type=int, default=8)
-    p.add_argument("--patch_batch", type=int, default=1)
-    p.add_argument("--full", action="store_true", help="write detail maps")
-    p.add_argument("--in_memory", action="store_true",
-                   help="preload mosaics into RAM (reference arguments/eval.py:26)")
-    p.add_argument("--patchsize", type=int, default=2048,
-                   help="sliding-window patch size (reference "
-                        "inference_patch_size=2048, utils/constants.py:12)")
-    p.add_argument("--patch_overlap", type=int, default=128,
-                   help="sliding-window halo (reference overlap=128)")
-    p.add_argument("--quantize", choices=["int8", "int8s", "w4a8"], default=None,
-                   help="int8 eval through the int8 UNet-block kernels: 'int8' = "
-                        "dynamic per-tile activation scales (kernels G/H); "
-                        "'int8s' = static scales calibrated on the first patch "
-                        "batch, int8 block I/O (kernels E/F); 'w4a8' = int8s "
-                        "with int4-grid weights. Census r2 stays within 0.02 "
-                        "of the float run")
-    return p
-
-
-def train_parser() -> argparse.ArgumentParser:
-    """The flags of run_train.py (popcorn_tpu/cli/args.py::train_parser).
-    Flags of features the port does not run yet are accepted by the parser
-    and raise in ``train_config_from_args``/``check_train_args``, naming
-    the ROADMAP item that ports them; none is ignored silently."""
-    p = argparse.ArgumentParser(
-        description="POPCORN training (PyTorch/CUDA port)", fromfile_prefix_chars="@"
-    )
-    _add_common(p)
+def _add_runtime(p: argparse.ArgumentParser, train: bool):
+    """The JAX parsers' runtime flags (popcorn_tpu/cli/args.py::_add_common):
+    each is taken with the port's behaviour, or raises in the ``check_*``
+    functions naming the ROADMAP item that ports it."""
     p.add_argument("--fused_head", action="store_true", default=None,
-                   help="accepted: the port's head always runs fused (kernels C and D)")
+                   help="accepted: the port's head always runs fused (%s)"
+                        % ("kernels C and D" if train else "kernel C"))
     p.add_argument("--no_fused_head", dest="fused_head", action="store_false",
-                   help="raises: the port has no unfused head on the card")
+                   help="raises: the unfused head is not ported yet (ROADMAP.md "
+                        "Queue 1 item 21)")
     p.add_argument("--remat", dest="remat_unet", action="store_true",
                    help="recompute the trainable UNet blocks' activations in the "
-                        "backward (torch.utils.checkpoint)")
+                        "backward (torch.utils.checkpoint)" if train else
+                        "accepted: no effect in eval, where no gradient flows")
     p.add_argument("--data_parallel", type=int, default=1,
                    help="> 1 raises: not ported yet (ROADMAP.md Queue 1 item 16)")
     p.add_argument("--ensemble_parallel", type=int, default=1,
@@ -98,7 +65,62 @@ def train_parser() -> argparse.ArgumentParser:
                         "popcorn_tpu_torch/build/)")
     p.add_argument("--debug_nans", action="store_true",
                    help="torch.autograd.set_detect_anomaly: raise at the op that "
-                        "produced a NaN (the reference's anomaly detection)")
+                        "produced a NaN (the reference's anomaly detection)" if train else
+                        "raise at the first patch whose member outputs hold a NaN, "
+                        "naming it (what jax_debug_nans stops the JAX eval on)")
+
+
+def eval_parser() -> argparse.ArgumentParser:
+    """The flags of run_eval.py (popcorn_tpu/cli/args.py::eval_parser), as
+    ``train_parser`` takes run_train.py's."""
+    p = argparse.ArgumentParser(
+        description="POPCORN ensemble evaluation (PyTorch/CUDA port)",
+        fromfile_prefix_chars="@",
+    )
+    _add_common(p)
+    _add_runtime(p, train=False)
+    p.add_argument("-r", "--resume", nargs="+", required=True,
+                   help="ensemble member checkpoints (.pth in the reference format)")
+    p.add_argument("-fs", "--fourseasons", action="store_true")
+    p.add_argument("--seed", type=int, default=1610)
+    p.add_argument("--save-dir", dest="save_dir", default="./results")
+    p.add_argument("-w", "--num_workers", type=int, default=8)
+    p.add_argument("--patch_batch", type=int, default=1)
+    p.add_argument("--full", action="store_true", help="write detail maps")
+    p.add_argument("--in_memory", action="store_true",
+                   help="preload mosaics into RAM (reference arguments/eval.py:26)")
+    p.add_argument("--device_feed", choices=("auto", "on", "off"), default="auto",
+                   help="auto/off: the host feed; on raises (the device-resident "
+                        "mosaic feed is ROADMAP.md Queue 1 item 12)")
+    p.add_argument("--patchsize", type=int, default=2048,
+                   help="sliding-window patch size (reference "
+                        "inference_patch_size=2048, utils/constants.py:12)")
+    p.add_argument("--patch_overlap", type=int, default=128,
+                   help="sliding-window halo (reference overlap=128)")
+    p.add_argument("--quantize", choices=["int8", "int8s", "w4a8"], default=None,
+                   help="int8 eval through the int8 UNet-block kernels: 'int8' = "
+                        "dynamic per-tile activation scales (kernels G/H); "
+                        "'int8s' = static scales calibrated on the first patch "
+                        "batch, int8 block I/O (kernels E/F); 'w4a8' = int8s "
+                        "with int4-grid weights. Census r2 stays within 0.02 "
+                        "of the float run")
+    p.add_argument("--spatial", action="store_true",
+                   help="raises: not ported yet (ROADMAP.md Queue 1 item 17)")
+    p.add_argument("--transport", choices=("exact", "bf16"), default="exact",
+                   help="bf16 raises: not ported yet (ROADMAP.md Queue 1 item 13)")
+    return p
+
+
+def train_parser() -> argparse.ArgumentParser:
+    """The flags of run_train.py (popcorn_tpu/cli/args.py::train_parser).
+    Flags of features the port does not run yet are accepted by the parser
+    and raise in ``train_config_from_args``/``check_train_args``, naming
+    the ROADMAP item that ports them; none is ignored silently."""
+    p = argparse.ArgumentParser(
+        description="POPCORN training (PyTorch/CUDA port)", fromfile_prefix_chars="@"
+    )
+    _add_common(p)
+    _add_runtime(p, train=True)
     p.add_argument("-r", "--resume", type=str, default=None)
     p.add_argument("-tregtrain", "--target_regions_train", nargs="+", default=["rwa"])
     p.add_argument("-wb", "--weak_batch_size", type=int, default=2)
@@ -160,17 +182,29 @@ def train_parser() -> argparse.ArgumentParser:
     return p
 
 
+def _refuse(todo) -> None:
+    """Raise for the first (set, flag, ROADMAP item) whose flag is set."""
+    for bad, what, item in todo:
+        if bad:
+            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
+
+
 def check_train_args(a) -> None:
     """Raise for the train flags whose feature the port does not run yet
     (the TrainConfig fields are checked by TrainConfig.check)."""
-    if a.fused_head is False:
-        raise NotImplementedError(
-            "--no_fused_head: the port's head always runs fused (kernels C and D)"
-        )
-    if a.ensemble_parallel > 1:
-        raise NotImplementedError(
-            "--ensemble_parallel > 1 is not ported yet (ROADMAP.md Queue 1 item 16)"
-        )
+    _refuse([(a.fused_head is False, "--no_fused_head", 21),
+             (a.ensemble_parallel > 1, "--ensemble_parallel > 1", 16)])
+
+
+def check_eval_args(a) -> None:
+    """Raise for the eval flags whose feature the port does not run yet."""
+    _refuse([(a.fused_head is False, "--no_fused_head", 21),
+             (a.data_parallel > 1, "--data_parallel > 1", 16),
+             (a.ensemble_parallel > 1, "--ensemble_parallel > 1", 16),
+             (a.multihost, "--multihost", 16),
+             (a.device_feed == "on", "--device_feed on", 12),
+             (a.spatial, "--spatial", 17),
+             (a.transport != "exact", f"--transport {a.transport}", 13)])
 
 
 def model_config_from_args(a) -> ModelConfig:
@@ -269,4 +303,5 @@ def eval_config_from_args(a) -> EvalConfig:
         in_memory=a.in_memory,
         patchsize=a.patchsize,
         overlap=a.patch_overlap,
+        debug_nans=a.debug_nans,
     )

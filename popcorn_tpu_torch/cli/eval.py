@@ -11,11 +11,15 @@ import time
 
 from ..config import DataPaths
 from ..infer.evaluator import Evaluator
-from .args import eval_config_from_args, eval_parser, model_config_from_args
+from .args import check_eval_args, eval_config_from_args, eval_parser, model_config_from_args
 
 
-def main(argv=None):
+def main(argv=None, timings=None):
+    """Run the eval CLI on ``argv``; returns the census metrics. ``timings``:
+    a dict that receives each region's sliding-window split
+    (infer/sliding.py::run_sliding_inference)."""
     args = eval_parser().parse_args(argv)
+    check_eval_args(args)
     ev = Evaluator(
         DataPaths(args.data_root),
         model_config_from_args(args),
@@ -25,7 +29,7 @@ def main(argv=None):
     )
     print("Experiment folder:", ev.experiment_folder)
     since = time.time()
-    stats = ev.test_target(save=True, full=args.full)
+    stats = ev.test_target(save=True, full=args.full, timings=timings)
     for k, v in sorted(stats.items()):
         print(f"  {k}: {v:.4f}")
     elapsed = time.time() - since

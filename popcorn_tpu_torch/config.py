@@ -391,6 +391,8 @@ class EvalConfig:
     in_memory: bool = False  # preload mosaics into host RAM
     patchsize: int = 2048  # reference inference_patch_size (constants.py:12)
     overlap: int = 128  # reference overlap (constants.py:13)
+    debug_nans: bool = False  # raise at the first patch whose member
+    # outputs hold a NaN (infer/sliding.py::run_sliding_inference)
 
     def __post_init__(self):
         # a degenerate pair (patchsize <= 2*overlap) would zero out the

@@ -16,7 +16,7 @@
 // __dp4a does four multiply-adds of int8 codes into an int32 accumulator.
 // Tensor cores (int8 mma/wgmma) are later work.
 //
-// Design: kernel A's tiling (conv_tile.cuh). One block of 256 threads owns
+// Design: the int8 kernels' tiling (conv_tile.cuh). One block of 256 threads owns
 // a 16x16 output tile; it stages the 20x20 int8 input tile (channels
 // padded to a multiple of 4, zero outside the image), both packed weights
 // and the four requant vectors in shared memory, computes the y1 codes on

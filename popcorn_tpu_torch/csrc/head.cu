@@ -105,14 +105,6 @@ __device__ __forceinline__ int frag_k(int layer, int s, int t, int r) {
   return BF16 ? 16 * s + 2 * t + (r & 1) + 8 * (r >> 1) : 8 * s + 2 * t + r;
 }
 
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // a (k, 64) weight into shared memory in fragment order
 template <bool BF16>
 __device__ __forceinline__ void stage_layer(BRec<BF16>* dst, const Elem<BF16>* __restrict__ w,
@@ -153,7 +145,7 @@ __device__ __forceinline__ void prefetch_x(Elem<BF16>* buf, const Elem<BF16>* __
     const int r = c / PER_PX, q = c % PER_PX;
     const bool ok = p0 + r < n;
     const float* src = reinterpret_cast<const float*>(ok ? x + (p0 + r) * HC_IN : x) + 4 * q;
-    cp_async16(reinterpret_cast<float*>(buf + r * HC_IN) + 4 * q, src, ok ? 16 : 0);
+    cp_async<16>(reinterpret_cast<float*>(buf + r * HC_IN) + 4 * q, src, ok ? 16 : 0);
   }
   cp_async_commit();
 }

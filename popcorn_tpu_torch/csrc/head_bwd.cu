@@ -213,12 +213,12 @@ __global__ void __launch_bounds__(BT, 2)
     for (int c = tid; c < TP * (BIN / 4); c += BT) {
       const int p = c / (BIN / 4), k = c % (BIN / 4);
       const bool ok = p0 + p < n;
-      cp_async16(xd + sw<XRS>(p, 4 * k), ok ? x + (p0 + p) * BIN + 4 * k : x, ok ? 16 : 0);
+      cp_async<16>(xd + sw<XRS>(p, 4 * k), ok ? x + (p0 + p) * BIN + 4 * k : x, ok ? 16 : 0);
     }
     if (tid < TP * BOUT / 4) {  // 16 bytes = the cotangents of 2 pixels
       const long long p = p0 + 2 * tid;
       const int valid = p >= n ? 0 : (n - p >= 2 ? 2 : 1);
-      cp_async16(gs0 + buf * TP * BOUT + 4 * tid, valid ? g + p * BOUT : g, valid * 8);
+      cp_async<16>(gs0 + buf * TP * BOUT + 4 * tid, valid ? g + p * BOUT : g, valid * 8);
     }
     cp_async_commit();
   };

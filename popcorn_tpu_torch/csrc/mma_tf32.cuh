@@ -1,6 +1,6 @@
 // mma_tf32.cuh — float32-accurate products on Hopper's tensor cores for
-// the redesigned float kernels (head_bwd.cu, up_block.cu), and the
-// cp.async staging both use.
+// the float kernels' float32 modes (double_conv.cu, up_block.cu, head.cu,
+// head_bwd.cu), and the cp.async staging they use.
 //
 // mma.sync.m16n8k8 with TF32 operands and float32 accumulators, in the
 // split-precision "3xTF32" form: each operand a is split into
@@ -96,13 +96,21 @@ __device__ __forceinline__ void mma_kstep(float (&d)[NT][4], AF a_at, BF b_at,
   }
 }
 
-// 16 bytes from global to shared memory, asynchronously; `bytes` < 16
-// reads that many and zero-fills the rest (0: all zeros, src unread)
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, int bytes) {
+// BYTES (4, 8 or 16) from global to shared memory, asynchronously;
+// `bytes` < BYTES reads that many and zero-fills the rest (0: all zeros,
+// src unread)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src, int bytes) {
   const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
-               "r"(bytes)
-               : "memory");
+  if constexpr (BYTES == 16) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes)
+                 : "memory");
+  } else {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(d), "l"(src),
+                 "n"(BYTES), "r"(bytes)
+                 : "memory");
+  }
 }
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");

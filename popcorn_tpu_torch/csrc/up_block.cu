@@ -169,7 +169,7 @@ __global__ void __launch_bounds__(UB_THREADS, 2)
       *reinterpret_cast<float4*>(dst) = make_float4(__low2float(lo), __high2float(lo),
                                                     __low2float(hi), __high2float(hi));
     } else {
-      cp_async16(dst, in ? src : x2b, in ? 16 : 0);
+      cp_async<16>(dst, in ? src : x2b, in ? 16 : 0);
     }
   }
   cp_async_commit();

@@ -4,7 +4,11 @@ Counterpart of popcorn_tpu/infer/evaluator.py (reference
 run_eval.py:29-269): loads N ``.pth`` members, runs the sliding-window
 ensemble per region, writes the mean/STD/SCALE/SCALE_STD GeoTIFFs,
 evaluates census metrics per level, then applies the dasymmetric
-adjustment, writes the ADJ map and re-evaluates.
+adjustment, writes the ADJ map and re-evaluates. Maps stitched on the
+device stay there for the census (``DeviceCensus``); maps stitched on the
+host (a region above the device-stitch budget) take the host route
+(``convert_popmap_to_census``, ``adjust_map_to_census``), as the JAX
+package's Evaluator does.
 """
 
 from __future__ import annotations
@@ -13,13 +17,18 @@ import dataclasses
 import os
 import threading
 import time
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import pandas as pd
 import torch
 
-from ..agg.census_agg import DeviceCensus, detail_maps
+from ..agg.census_agg import (
+    DeviceCensus,
+    adjust_map_to_census,
+    convert_popmap_to_census,
+    detail_maps,
+)
 from ..compat.weights import load_popcorn_checkpoint
 from ..config import NEED_ASCENDING_FILL, TESTLEVELS_EVAL, DataPaths, EvalConfig, ModelConfig
 from ..data.dataset import PopulationDataset
@@ -131,10 +140,15 @@ class Evaluator:
         ]
         self.stats = NormStats(device=self.device)
 
-    def test_target(self, save: bool = True, full: bool = False) -> Dict[str, float]:
+    def test_target(
+        self, save: bool = True, full: bool = False, timings: Optional[Dict[str, Dict]] = None
+    ) -> Dict[str, float]:
+        """Census metrics of every target region. ``timings``: a dict that
+        receives each region's sliding-window split
+        (infer/sliding.py::run_sliding_inference's ``timings``)."""
         out: Dict[str, float] = {}
         for ds in self.datasets:
-            # the finalized maps stay on the device: census aggregation and
+            # maps stitched on the device stay there: census aggregation and
             # the dasymmetric adjustment run there, and only the maps that
             # are written to GeoTIFF come to the host
             maps = run_sliding_inference(
@@ -142,7 +156,10 @@ class Evaluator:
                 stats=self.stats, batch_size=self.ecfg.patch_batch,
                 progress=True, num_workers=self.ecfg.num_workers,
                 device=self.device, return_device=True,
+                timings=None if timings is None else timings.setdefault(ds.region, {}),
+                debug_nans=self.ecfg.debug_nans,
             )
+            is_dev = isinstance(maps["map"], torch.Tensor)
             writer = _MapWriter(ds) if save else None
             if save:
                 writer.put(maps["map"], self.experiment_folder)
@@ -156,31 +173,41 @@ class Evaluator:
             censuses: Dict[str, pd.DataFrame] = {}
 
             def _level_census(level):
-                if level not in dcs:
+                if level not in boundaries:
                     with GeoTIFF(ds.boundary_paths[level]) as g:
                         boundaries[level] = g.read(1, squeeze=True)
                     censuses[level] = pd.read_csv(ds.census_paths[level])
-                    dcs[level] = DeviceCensus(boundaries[level], censuses[level], self.device)
-                return dcs[level]
+                    if is_dev:
+                        dcs[level] = DeviceCensus(boundaries[level], censuses[level], self.device)
+
+            def _convert(pred, level):
+                _level_census(level)
+                if is_dev:
+                    return dcs[level].convert(pred)
+                return convert_popmap_to_census(pred, boundaries[level], censuses[level])
 
             levels = TESTLEVELS_EVAL.get(ds.region, ["coarse"])
             for level in levels:
-                pred_c, gt_c = _level_census(level).convert(maps["map"])
+                pred_c, gt_c = _convert(maps["map"], level)
                 out.update(get_test_metrics(pred_c, gt_c, tag=f"MainCensus_{ds.region}_{level}"))
                 if full:
-                    det = detail_maps(
-                        maps["map"].cpu().numpy(), boundaries[level], censuses[level]
-                    )
+                    host_map = maps["map"].cpu().numpy() if is_dev else maps["map"]
+                    det = detail_maps(host_map, boundaries[level], censuses[level])
                     ddir = os.path.join(self.experiment_folder, f"{ds.region}_{level}")
                     for name, m in det.items():
                         ds.save(m, ddir, tag=f"_{name}")
 
             # dasymmetric adjustment at the train level (run_eval.py:181-200)
-            adj = _level_census(ds.train_level).adjust(maps["map"])
+            lvl = ds.train_level
+            _level_census(lvl)
+            if is_dev:
+                adj = dcs[lvl].adjust(maps["map"])
+            else:
+                adj = adjust_map_to_census(maps["map"], boundaries[lvl], censuses[lvl])
             if save:
                 writer.put(adj, self.experiment_folder, tag=f"ADJ_{ds.region}")
             for level in levels:
-                pred_c, gt_c = _level_census(level).convert(adj)
+                pred_c, gt_c = _convert(adj, level)
                 out.update(get_test_metrics(pred_c, gt_c, tag=f"AdjCensus_{ds.region}_{level}"))
             if writer is not None:
                 writer.join()

@@ -8,10 +8,15 @@ host-feed path:
   * ``members`` folds the Bag-of-POPCORN members in member order into
     sum and sum-of-squares maps of the population density and the
     occupancy scale, then multiplies them by the halo-validity mask;
-  * the patch maps are added in place into country-scale accumulators
-    that stay on the device, and one finalize computes the visit-count
-    mean and the std sqrt((sum_sq - n*mean^2)/(n-1)) (run_eval.py:137-154),
-    including the reference's count > 1 divide-mask quirk.
+  * the patch maps are added in place into country-scale accumulators,
+    and one finalize computes the visit-count mean and the std
+    sqrt((sum_sq - n*mean^2)/(n-1)) (run_eval.py:137-154), including the
+    reference's count > 1 divide-mask quirk. The accumulators stay on the
+    device while their five float32 maps fit _DEVICE_STITCH_BUDGET_BYTES,
+    the JAX package's budget; above it (a country the size of Uganda, 2.4e9
+    pixels at 10 m) each patch's maps come to the host and are added
+    there, with an int32 visit count, as the JAX package's host stitch
+    does (popcorn_tpu/infer/sliding.py:482-532, 934-940).
 
 Quantized eval: with ``quantize`` int8s/w4a8 each member's static int8
 scales are calibrated once, on the first patch batch of the region, and
@@ -22,6 +27,7 @@ kernels too.
 
 from __future__ import annotations
 
+import time
 from typing import Any, Dict, Optional, Sequence, Tuple
 
 import numpy as np
@@ -46,6 +52,9 @@ Tree = Dict[str, Any]
 
 _ACC_KEYS = ("dense_sum", "dense_sq", "scale_sum", "scale_sq", "count")
 _PREP_KEYS = ("S2", "S1", "VIIRS", "building_counts")
+# the five float32 country-scale maps stay on the device below this many
+# bytes (popcorn_tpu/infer/sliding.py:537-538)
+_DEVICE_STITCH_BUDGET_BYTES = 6e9
 
 
 def resolve_device(device) -> torch.device:
@@ -150,17 +159,22 @@ def make_patch_forward(mcfg: ModelConfig, consts: Tree, stats: NormStats, n_memb
 
 
 class StitchAccumulators:
-    """Country-scale accumulators on a device, patch maps added in place
-    (the JAX package's device-resident stitch, sliding.py:541)."""
+    """Country-scale accumulators, patch maps added in place: on a device
+    (the JAX package's device-resident stitch, sliding.py:541, a float32
+    count), or on the host (its StitchAccumulators, sliding.py:482, an int32
+    count; each patch's maps are fetched to the host first)."""
 
-    def __init__(self, shape: Tuple[int, int], device):
+    def __init__(self, shape: Tuple[int, int], device, host: bool = False):
         h, w = shape
-        self.accs = {k: torch.zeros((h, w), dtype=torch.float32, device=device) for k in _ACC_KEYS}
+        dev = "cpu" if host else device
+        self.accs = {k: torch.zeros((h, w), dtype=torch.float32, device=dev) for k in _ACC_KEYS}
+        if host:
+            self.accs["count"] = torch.zeros((h, w), dtype=torch.int32)
 
     def add(self, x: int, y: int, res: Dict[str, torch.Tensor], b: int) -> None:
         ph, pw = res["dense_sum"].shape[-2:]
-        for k in _ACC_KEYS:
-            self.accs[k][x : x + ph, y : y + pw] += res[k][b]
+        for k, acc in self.accs.items():
+            acc[x : x + ph, y : y + pw] += res[k][b].to(acc.dtype)
 
     def finalize(self) -> Dict[str, torch.Tensor]:
         """Visit-count averaging + sum-of-squares std (run_eval.py:137-154).
@@ -211,6 +225,18 @@ def _upload(
     return out
 
 
+def stitch_on_host(device_stitch: str, shape: Tuple[int, int]) -> bool:
+    """Whether the stitch runs on the host: ``device_stitch`` "host", or
+    "auto" with the five float32 accumulators of a region of ``shape`` not
+    under _DEVICE_STITCH_BUDGET_BYTES."""
+    if device_stitch not in ("auto", "host", "device"):
+        raise ValueError(f"device_stitch={device_stitch!r}: 'auto', 'host' or 'device'")
+    h, w = shape
+    return device_stitch == "host" or (
+        device_stitch == "auto" and h * w * 4 * len(_ACC_KEYS) >= _DEVICE_STITCH_BUDGET_BYTES
+    )
+
+
 def run_sliding_inference(
     members: Sequence[Tree],
     consts: Tree,
@@ -222,15 +248,38 @@ def run_sliding_inference(
     progress: bool = False,
     num_workers: int = 1,
     device="cuda",
+    device_stitch: str = "auto",
     return_device: bool = False,
+    timings: Optional[Dict[str, float]] = None,
+    debug_nans: bool = False,
 ) -> Dict[str, Any]:
     """Full-region ensemble inference -> stitched mean/std maps.
 
     members/consts: parameter trees of torch tensors (moved to ``device``).
     Patches come from the host InferenceFeed; each batch is uploaded one
-    batch ahead of the forward that uses it. The accumulators stay on the
-    device; ``return_device`` returns the finalized maps as device tensors
-    (census aggregation runs on them there), else as numpy arrays.
+    batch ahead of the forward that uses it.
+
+    device_stitch: "auto" keeps the five accumulators on the device while
+    they fit _DEVICE_STITCH_BUDGET_BYTES, else stitches on the host;
+    "host"/"device" force the mode (popcorn_tpu/infer/sliding.py:934-940).
+    The forward runs on ``device`` either way.
+
+    return_device: return the finalized maps of a device stitch as device
+    tensors (census aggregation runs on them there), else numpy arrays. A
+    host stitch always returns numpy arrays, as the JAX package does.
+
+    timings: optional dict filled with the wall-clock split of the run, the
+    JAX package's keys: 'feed_wait_s' (host blocked obtaining the next
+    patch batch from the feed: raster reads, assembly), 'upload_s' (0: the
+    device-resident feed is not ported), 'dispatch_s' (issuing the forward
+    and stitch work and the host stitch's fetches; device compute is
+    asynchronous behind it), 'finalize_s' (finalize, the fetch of numpy
+    maps, and the device's drain), 'total_s', 'n_patches' (valid patch
+    visits).
+
+    debug_nans: raise FloatingPointError at the first patch whose member
+    outputs hold a NaN, naming it (what jax_debug_nans stops the JAX
+    eval on).
     """
     from ..compat.weights import to_torch
 
@@ -239,7 +288,15 @@ def run_sliding_inference(
     member_params = [to_torch(p, dev) for p in members]
     consts = to_torch(consts, dev)
     fwd = make_patch_forward(mcfg, consts, stats, len(members))
-    acc = StitchAccumulators(dataset.shape(), dev)
+    host = stitch_on_host(device_stitch, dataset.shape())
+    acc = StitchAccumulators(dataset.shape(), dev, host=host)
+
+    if timings is not None:
+        for k in ("feed_wait_s", "upload_s", "dispatch_s", "finalize_s", "total_s"):
+            timings.setdefault(k, 0.0)
+        timings.setdefault("n_patches", 0)
+    t_run0 = time.perf_counter()
+    feed_wait = 0.0
 
     feed = InferenceFeed(dataset, batch_size=batch_size, prefetch=2, num_workers=num_workers)
     source = feed
@@ -247,22 +304,48 @@ def run_sliding_inference(
         from tqdm import tqdm
 
         source = tqdm(feed, total=len(feed), leave=False)
-    it = iter(source)
+    src = iter(source)
+
+    def next_batch():
+        nonlocal feed_wait
+        t0 = time.perf_counter()
+        b = next(src, None)
+        feed_wait += time.perf_counter() - t0
+        return b
 
     # one-batch lookahead: the next batch is uploaded before the current
     # one's forward runs
-    cur = next(it, None)
+    n_seen = 0
+    cur = next_batch()
     cur_dev = _upload(cur, dev) if cur is not None else None
     while cur is not None:
-        nxt = next(it, None)
+        nxt = next_batch()
         nxt_dev = _upload(nxt, dev) if nxt is not None else None
         res = fwd(member_params, cur_dev)
+        if host:
+            res = {k: v.cpu() for k, v in res.items()}
         for b in range(len(cur["valid"])):
-            if cur["valid"][b]:
-                x, y = (int(v) for v in cur["img_coords"][b])
-                acc.add(x, y, res, b)
+            if not cur["valid"][b]:
+                continue
+            x, y = (int(v) for v in cur["img_coords"][b])
+            if debug_nans and any(bool(torch.isnan(res[k][b]).any()) for k in ("dense_sum", "scale_sum")):
+                raise FloatingPointError(
+                    f"NaN in the member outputs of patch {n_seen} (img_coords {x}, {y})"
+                )
+            acc.add(x, y, res, b)
+            n_seen += 1
         cur, cur_dev = nxt, nxt_dev
+    t_fin0 = time.perf_counter()
     maps = acc.finalize()
-    if return_device:
-        return maps
-    return {k: v.cpu().numpy() for k, v in maps.items()}
+    if host or not return_device:
+        maps = {k: v.cpu().numpy() for k, v in maps.items()}
+    elif timings is not None and dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    if timings is not None:
+        t1 = time.perf_counter()
+        timings["feed_wait_s"] += feed_wait
+        timings["dispatch_s"] += (t_fin0 - t_run0) - feed_wait
+        timings["finalize_s"] += t1 - t_fin0
+        timings["total_s"] += t1 - t_run0
+        timings["n_patches"] += n_seen
+    return maps

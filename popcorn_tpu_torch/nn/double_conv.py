@@ -4,7 +4,8 @@
 
 Kernel A (csrc/double_conv.cu), float32 or bfloat16: counterpart of
 popcorn_tpu/nn/pallas_conv.py::fused_double_conv (Pallas kernel
-``_double_conv_kernel``) on plain NHWC tensors. In bfloat16 it rounds
+``_double_conv_kernel``) on plain NHWC tensors, both convs on the tensor
+cores (float32 at float32 accuracy in the 3xTF32 form). In bfloat16 it rounds
 where that kernel rounds: the input and the weights are bf16, the sums
 and the folded affine float32, y1 is rounded to bf16 on chip and the
 output is bf16. ``double_conv_ops`` is the same block as a composition of

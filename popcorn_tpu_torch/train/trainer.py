@@ -20,7 +20,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from ..agg.census_agg import DeviceCensus
+from ..agg.census_agg import DeviceCensus, convert_popmap_to_census
 from ..compat.weights import load_popcorn_from_dda, to_torch
 from ..config import (
     NEED_ASCENDING_FILL,
@@ -336,7 +336,8 @@ class Trainer:
     def test_target(self, save: bool = False) -> Dict[str, float]:
         """In-training sliding-window test (run_train.py:314-370) through
         the eval path (infer/sliding.py); the maps and the census
-        aggregation stay on the device."""
+        aggregation stay on the device unless the region is above the
+        device-stitch budget."""
         out = {}
         for ds in self.test_datasets:
             maps = run_sliding_inference(
@@ -344,18 +345,24 @@ class Trainer:
                 batch_size=self.test_patch_batch, num_workers=self.tcfg.num_workers,
                 device=self.device, return_device=True,
             )
+            # a region above the device-stitch budget comes back stitched
+            # on the host, as numpy maps
+            on_dev = isinstance(maps["map"], torch.Tensor)
             if save:
-                ds.save(maps["map"].cpu().numpy(), self.experiment_folder)
+                host = {k: maps[k].cpu().numpy() if on_dev else maps[k] for k in ("map", "scale")}
+                ds.save(host["map"], self.experiment_folder)
                 if self.mcfg.occupancy_model:
-                    ds.save(maps["scale"].cpu().numpy(), self.experiment_folder,
-                            tag=f"SCALE_{ds.region}")
+                    ds.save(host["scale"], self.experiment_folder, tag=f"SCALE_{ds.region}")
             for level in TESTLEVELS.get(ds.region, ["coarse"]):
                 import pandas as pd
 
                 with GeoTIFF(ds.boundary_paths[level]) as g:
                     boundary = g.read(1, squeeze=True)
                 census = pd.read_csv(ds.census_paths[level])
-                pred_c, gt_c = DeviceCensus(boundary, census, self.device).convert(maps["map"])
+                if on_dev:
+                    pred_c, gt_c = DeviceCensus(boundary, census, self.device).convert(maps["map"])
+                else:
+                    pred_c, gt_c = convert_popmap_to_census(maps["map"], boundary, census)
                 out.update(get_test_metrics(pred_c, gt_c, tag=f"MainCensus_{ds.region}_{level}"))
         self.logger.log({f"{k}/targettest": v for k, v in out.items()}, self.info["iter"])
         return out

@@ -5,11 +5,13 @@ multiple of the head's block, the head backward (kernel D) at pixel
 counts of 1, one tile plus one and ragged shapes, the int8 kernels E-H at
 the same odd sizes (int8 outputs bit-equal to their plain versions), and
 the wrappers' refusals, including of tensors that need a gradient. The
-tensor-core tilings of kernels B (TH x 30 output tiles, TH 14 at 32 conv1
-channels and 28 at 16) and D (64-pixel tiles on a persistent grid of at
-most 264 blocks) are held at ragged last tiles in both dimensions, pad
-rings with a top/left offset, the builder's odd 519^2 -> 1038^2, one tile
-plus and minus one, and more tiles than blocks.
+tensor-core tilings of kernels A (TH x 30 output tiles, TH 14 in float32
+at 16 intermediate channels and 30 otherwise), B (TH x 30, TH 14 at 32
+conv1 channels and 28 at 16) and D (64-pixel tiles on a persistent grid
+of at most 264 blocks) are held at ragged last tiles in both dimensions,
+pad rings with a top/left offset, the builder's odd 519^2 (-> 1038^2), one
+tile plus and minus one, more tiles than blocks, and (A) an input view
+off the alignment of its vector loads.
 
 Needs a CUDA card and skips without one. The repo's conftest imports jax,
 which the GPU machine lacks, so run it there as
@@ -148,6 +150,53 @@ def test_double_conv_kernel_bf16_odd_batch(dev, cin, cm, cout):
     got = A.double_conv(p, bn, x)
     assert A.launches_bf16 == before + 1
     _bf16_close(got, A.double_conv_plain(p, bn, x))
+
+
+def _dc_close(got, ref):
+    if got.dtype == torch.bfloat16:
+        _bf16_close(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+@pytest.mark.parametrize(
+    "cin,cm,cout,shape",
+    [(2, 8, 8, (2, 37, 61)), (4, 8, 8, (2, 37, 61)), (8, 16, 16, (2, 37, 61)),
+     (16, 16, 16, (2, 37, 61)), (16, 16, 16, (1, 519, 519)), (8, 16, 16, (1, 15, 31)),
+     (2, 8, 8, (1, 3, 5))],
+    ids=["inc_sar", "inc_opt", "down1", "down2", "builder_odd", "tile_plus_1", "tiny"],
+)
+def test_double_conv_kernel_tensor_core_tiling(dev, dtype, cin, cm, cout, shape):
+    """Kernel A's TH x 30 tiles (TH 14 in float32 at 16 intermediate
+    channels, else 30) in every instantiation and both modes: ragged last
+    tiles in both dimensions, the builder's odd 519^2, one tile plus one
+    (15 rows and 31 columns) and a single partial tile."""
+    g = torch.Generator().manual_seed(900 + cin + shape[1])
+    p, bn = _dc_params(g, dev, cin, cm, cout)
+    x = _n(g, dev, *shape, cin).to(dtype)
+    counter = "launches_bf16" if dtype == torch.bfloat16 else "launches"
+    before = getattr(A, counter)
+    got = A.double_conv(p, bn, x)
+    assert getattr(A, counter) == before + 1
+    _dc_close(got, A.double_conv_plain(p, bn, x))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("cin,cm,cout", [(2, 8, 8), (16, 16, 16)])
+def test_double_conv_kernel_takes_a_misaligned_view(dev, dtype, cin, cm, cout):
+    """An input whose view starts one element off the alignment of the
+    kernel's vector loads is staged element by element: the same result
+    as a copy."""
+    g = torch.Generator().manual_seed(cin)
+    p, bn = _dc_params(g, dev, cin, cm, cout)
+    shape = (2, 21, 33, cin)
+    buf = _n(g, dev, 2 * 21 * 33 * cin + 1).to(dtype)
+    x = buf[1:].view(shape)
+    assert x.data_ptr() % 16 != 0
+    got = A.double_conv_cuda(p, bn, x)
+    assert torch.equal(got, A.double_conv_cuda(p, bn, x.clone()))
+    _dc_close(got, A.double_conv_plain(p, bn, x))
 
 
 @pytest.mark.parametrize(

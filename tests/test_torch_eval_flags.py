@@ -1,0 +1,97 @@
+"""The port's eval CLI takes every flag of run_eval.py: each is accepted
+with the port's behaviour, or refused with NotImplementedError naming the
+ROADMAP item that ports it (the eval twin of tests/test_torch_trainer.py::
+test_every_run_train_flag_is_taken_or_refused_with_a_reason). argparse never
+exits on a JAX eval command line."""
+
+import pytest
+
+from popcorn_tpu.cli.args import eval_parser as j_eval_parser
+from popcorn_tpu_torch.cli.args import (
+    check_eval_args,
+    check_train_args,
+    eval_config_from_args,
+    eval_parser,
+    model_config_from_args,
+    train_parser,
+)
+from popcorn_tpu_torch.config import EvalConfig
+
+MEMBERS = ["-r", "m1.pth", "m2.pth"]
+
+
+def _flag_cases():
+    """One argv per run_eval.py option (every choice of a choice flag)."""
+    cases = []
+    for a in j_eval_parser()._actions:
+        if not a.option_strings or a.dest in ("help", "resume"):
+            continue
+        opt = a.option_strings[-1]
+        if a.choices:
+            cases += [[opt, c] for c in a.choices]
+        elif a.nargs in (0, "?"):
+            cases.append([opt])
+        elif a.type is int:
+            # a patch must exceed twice the default overlap
+            cases.append([opt, "512" if a.dest == "patchsize" else "2"])
+        elif a.type is float:
+            cases.append([opt, "0.5"])
+        else:
+            cases.append([opt, "rwa"])
+    return cases
+
+
+def _configs(argv):
+    args = eval_parser().parse_args([*argv, *MEMBERS])
+    check_eval_args(args)
+    model_config_from_args(args)
+    return args, eval_config_from_args(args)
+
+
+@pytest.mark.parametrize("argv", _flag_cases(), ids=lambda a: " ".join(a))
+def test_every_run_eval_flag_is_taken_or_refused_with_a_reason(argv):
+    try:
+        _, ecfg = _configs(argv)
+    except NotImplementedError as e:
+        assert "ROADMAP.md Queue 1 item" in str(e), str(e)
+        return
+    assert isinstance(ecfg, EvalConfig)
+
+
+@pytest.mark.parametrize(
+    "argv,item",
+    [(["--no_fused_head"], 21), (["--data_parallel", "2"], 16), (["--ensemble_parallel", "2"], 16),
+     (["--multihost"], 16), (["--device_feed", "on"], 12), (["--spatial"], 17),
+     (["--transport", "bf16"], 13)],
+    ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
+)
+def test_refused_eval_flags_name_their_roadmap_item(argv, item):
+    with pytest.raises(NotImplementedError, match=rf"ROADMAP.md Queue 1 item {item}\)"):
+        _configs(argv)
+
+
+@pytest.mark.parametrize(
+    "argv",
+    [["--compile_cache"], ["--compile_cache", "/tmp/xla"], ["--fused_head"], ["--remat"],
+     ["--debug_nans"], ["--device_feed", "auto"], ["--device_feed", "off"],
+     ["--data_parallel", "1"], ["--transport", "exact"]],
+    ids=lambda a: " ".join(a),
+)
+def test_accepted_eval_flags(argv):
+    args, ecfg = _configs(argv)
+    assert ecfg.debug_nans == ("--debug_nans" in argv)
+    assert model_config_from_args(args).remat_unet == ("--remat" in argv)
+
+
+def test_no_fused_head_is_refused_in_train_with_its_item():
+    with pytest.raises(NotImplementedError, match=r"item 21\)"):
+        check_train_args(train_parser().parse_args(["--no_fused_head"]))
+
+
+def test_package_exports_train_config():
+    import popcorn_tpu
+    import popcorn_tpu_torch
+    from popcorn_tpu_torch.config import TrainConfig
+
+    assert popcorn_tpu_torch.TrainConfig is TrainConfig
+    assert set(popcorn_tpu.__all__) <= set(popcorn_tpu_torch.__all__)
