@@ -6,9 +6,10 @@ Phases, each printing one JSON line:
                TF32 off, so the plain versions are true float32;
   2. build   — compiles every kernel of csrc/ with nvcc (all at once),
                then one build_report line a source: registers, spills
-               and shared memory of each kernel (ptxas -v), and for A-D
-               the tensor-core MMAs (HMMA) in their SASS, which must be
-               there in every instantiation;
+               and shared memory of each kernel (ptxas -v), and the
+               tensor-core MMAs in the SASS of A-D (HMMA) and of F and H
+               (IMMA, with no __dp4a: IDP.4A), which must be there in
+               every instantiation;
   3. kernels — each kernel's wrapper at the main path's shapes (2048^2
                patch, real channel widths, the repo's DDA weights) held
                against its plain PyTorch version on the same inputs, with
@@ -25,6 +26,9 @@ Phases, each printing one JSON line:
                (static scales calibrated on it for E and F), plus the
                builder's odd 519^2 blocks (G, H) and a w4a8 case (E); their
                int8 outputs must equal their plain versions' bit for bit;
+               H again in its bf16 mode and F's up1 with bf16 features,
+               the eval's default; their library time is the plain
+               version with its integer products on torch._int_mm;
   4. model   — popcorn_forward on a small input, kernels against the CPU
                plain path, in float32 and in bf16;
   5. main    — the Bag-of-POPCORN eval through the eval CLI: a synthetic
@@ -42,8 +46,9 @@ Phases, each printing one JSON line:
                metrics within STITCH_STAT_TOL of the first run's;
   6. quant   — the same eval at the default dtype with --quantize int8s,
                w4a8 and int8, then int8 with pallas_stream=True (the
-               builder quantized too) through the Evaluator, then
-               unquantized again: finite GeoTIFFs, every census r2 within
+               builder quantized too) through the Evaluator, int8 and
+               int8s at --compute_dtype float32 (H's float32 mode, F's
+               float32 features), then unquantized again: finite GeoTIFFs, every census r2 within
                QUANT_R2_BOUND of the main run, a population map correlated
                >= QUANT_MAP_CORR with it, and the launch counts of every
                kernel equal to QUANT_LAUNCHES per patch; wall time and
@@ -78,7 +83,9 @@ result. Run from the repository root:
         # also times, case by case, the kernels built from the csrc/ of
         # another checkout DIR (an earlier commit, unpacked by git archive)
         # under the same wrappers: parent, change, change, parent, as
-        # parent_* fields of each kernel line (its outputs are not checked)
+        # parent_* fields of each kernel line (its outputs are not checked;
+        # a mode the parent lacks runs its nearest entry with the parent's
+        # conversions around it)
 """
 
 from __future__ import annotations
@@ -110,14 +117,16 @@ PEAK_BF16_FLOPS = 989e12
 # what each float kernel's float32 mode is designed against
 DESIGNED_AGAINST = {"double_conv": "tf32x3", "up_block": "tf32x3", "head": "tf32x3",
                     "head_bwd": "tf32x3"}
-# the kernels that must hold tensor-core MMAs (HMMA in their SASS), by
-# source and the name of their kernel functions
-TENSOR_CORE_KERNELS = {"double_conv": "double_conv_kernel", "up_block": "up_block_kernel",
-                       "head": "head_kernel", "head_bwd": "head_bwd_kernel"}
+# the kernels that must hold tensor-core MMAs in their SASS, by source:
+# the name of their kernel functions and the MMA's opcode (HMMA for float
+# operands, IMMA for int8), and for the int8 ones no __dp4a (IDP.4A)
+TENSOR_CORE_KERNELS = {"double_conv": ("double_conv_kernel", "HMMA"),
+                       "up_block": ("up_block_kernel", "HMMA"),
+                       "head": ("head_kernel", "HMMA"), "head_bwd": ("head_bwd_kernel", "HMMA"),
+                       "up_block_qs": ("up_block_qs_kernel", "IMMA"),
+                       "up_block_q": ("up_block_q_kernel", "IMMA")}
+NO_TENSOR_CORE_OPCODE = {"IMMA": "IDP.4A"}
 PEAK_HBM_BYTES = 3.35e12
-# no PyTorch call computes an int8 convolution (cuDNN's int8 path is not
-# reachable from torch), so the int8 kernels have no library yardstick
-NO_INT8_LIBRARY = "no PyTorch call computes an int8 convolution"
 # phase quant: the JAX package's census bound for a quantized eval
 # (tests/test_quantize_acceptance.py:27) and the map correlation it asks of
 # the int8 forward (tests/test_pallas_conv.py::test_int8_popcorn_forward_close)
@@ -128,13 +137,21 @@ QUANT_MAP_CORR = 0.99
 # a member; the float kernels in the default dtype's (bf16) modes
 MAIN_LAUNCHES = {"double_conv_bf16": 36, "up_block_bf16": 24, "head_bf16": 5}
 QUANT_LAUNCHES = {
-    "int8s": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv_bf16": 6,
-              "up_block_bf16": 4, "head_bf16": 5},
-    "w4a8": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv_bf16": 6,
+    # F's up2 with int8 out, its up1 with bf16 features
+    "int8s": {"double_conv_qs": 30, "up_block_qs": 10, "up_block_qs_bf16": 10,
+              "double_conv_bf16": 6, "up_block_bf16": 4, "head_bf16": 5},
+    "w4a8": {"double_conv_qs": 30, "up_block_qs": 10, "up_block_qs_bf16": 10,
+             "double_conv_bf16": 6, "up_block_bf16": 4, "head_bf16": 5},
+    # H in its bf16 mode only
+    "int8": {"double_conv_q": 30, "up_block_q_bf16": 20, "double_conv_bf16": 6,
              "up_block_bf16": 4, "head_bf16": 5},
-    "int8": {"double_conv_q": 30, "up_block_q": 20, "double_conv_bf16": 6, "up_block_bf16": 4,
-             "head_bf16": 5},
-    "int8+pallas_stream": {"double_conv_q": 36, "up_block_q": 24, "head_bf16": 5},
+    "int8+pallas_stream": {"double_conv_q": 36, "up_block_q_bf16": 24, "head_bf16": 5},
+    # the float32 modes on their path, at --compute_dtype float32: H's, and
+    # F's up2 with int8 out and its up1 with float32 features
+    "int8_float32": {"double_conv_q": 30, "up_block_q": 20, "double_conv": 6, "up_block": 4,
+                     "head": 5},
+    "int8s_float32": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv": 6,
+                      "up_block": 4, "head": 5},
     # the unquantized eval again, last: the main phase's run is the
     # process's first eval and pays its first-call costs, so the modes are
     # timed between two unquantized runs
@@ -201,6 +218,8 @@ STEP_BF16_RTOL, STEP_BF16_CORR = 1e-2, 0.999
 # Pallas-route semantics
 MODEL_BF16_CORR = 0.9999
 KERNEL_REPS = 10
+# device_ms: the most traces it takes to find one that holds every launch
+TRACE_TRIES = 3
 # the train phase's larger batch: its 6 weak samples of the seeded
 # 2304x2560 region's 4x6 admin grid come in the buckets 2x1024x1024 and
 # 2x512x256 (the train phase checks that this one is among them)
@@ -265,22 +284,33 @@ def device_ms(fn, function: str, reps: int = KERNEL_REPS):
     takes, from a torch.profiler trace over ``reps`` warmed calls of
     ``fn``: the kernel alone, without the wrapper's host work and its small
     conversion kernels, which time_ms counts where the kernel is faster
-    than the host. None if the trace holds no such kernel: it measures, it
-    checks nothing."""
+    than the host. With ``function`` empty, every kernel and copy of the
+    call. None if the trace holds no such kernel. The trace must hold every
+    launch: ``function`` once a call, each kernel of an empty one a whole
+    number of times a call: a trace that does not is taken again, at most
+    TRACE_TRIES times in all, then it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    mine = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA and function in e.key]
-    if not mine:
-        return None
-    return sum(dev_us(e) for e in mine) / 1e3 / reps
+    for _ in range(TRACE_TRIES):
+        # one profiling cycle, its events kept whole (acc_events)
+        with profile(activities=[ProfilerActivity.CUDA], acc_events=True) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        mine = [e for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA and function in e.key]
+        if not mine:
+            return None
+        lost = {e.key[:80]: e.count for e in mine
+                if (e.count != reps if function else e.count % reps)}
+        if not lost:
+            return sum(dev_us(e) for e in mine) / 1e3 / reps
+    raise AssertionError(f"device_ms: {TRACE_TRIES} traces of {reps} calls each, the last with "
+                         f"{lost} launches of {function or 'the call'}'s kernels")
 
 
 def profile_steps(case: str, run, step_ms: float, reps: int = 3) -> dict:
@@ -347,6 +377,121 @@ def compare(got, ref, name: str):
     return max_abs, max_rel, share
 
 
+# The library yardstick of the int8 kernels E-H: each plain version with
+# its integer products on torch._int_mm, PyTorch's int8 GEMM (int32 sums),
+# convolutions as an im2col of nine shifted views of the codes with K
+# zero-padded to a multiple of 8. Timed beside the kernels; the port never
+# calls it.
+
+
+def int_mm_conv3x3(xq, wq, same=True):
+    """conv3x3_codes (nn/quant.py) through torch._int_mm, as float32."""
+    import torch
+    import torch.nn.functional as F
+
+    if same:
+        xq = F.pad(xq, (0, 0, 1, 1, 1, 1))
+    n, hp, wp, cin = xq.shape
+    h, w = hp - 2, wp - 2
+    k = 9 * cin
+    kp = -(-k // 8) * 8
+    cols = torch.cat([xq[:, ky:ky + h, kx:kx + w, :] for ky in range(3) for kx in range(3)], -1)
+    cols = F.pad(cols.reshape(-1, k), (0, kp - k))
+    wm = F.pad(wq.reshape(k, -1), (0, 0, 0, kp - k))
+    return torch._int_mm(cols, wm).reshape(n, h, w, -1).float()
+
+
+def int_mm_tconv(x1q, wtq):
+    """The transposed conv's integer sums (B, h, 2, w, 2, Cu) through
+    torch._int_mm, as float32 (up_block_qs_plain's einsum)."""
+    import torch
+
+    b, h, w, c1 = x1q.shape
+    acc = torch._int_mm(x1q.reshape(-1, c1), wtq.reshape(c1, -1)).float()
+    return acc.reshape(b, h, w, 2, 2, -1).permute(0, 1, 3, 2, 4, 5)
+
+
+def dc_qs_library(w1q, e1, g1, w2q, e2, g2, xq, float_out):
+    """double_conv_qs_plain (kernel E) with torch._int_mm products."""
+    import torch
+
+    from popcorn_tpu_torch.nn.quant import requant
+
+    y1q = requant(int_mm_conv3x3(xq, w1q), e1, g1, 0.0)
+    acc2 = int_mm_conv3x3(y1q, w2q)
+    if float_out:
+        return torch.relu(acc2 * e2 + g2)
+    return requant(acc2, e2, g2, 0.0)
+
+
+def dc_q_library(w1q, d1, t1, w2q, d2, t2, x):
+    """double_conv_q_plain (kernel G) with torch._int_mm products."""
+    import torch
+
+    from popcorn_tpu_torch.nn.quant import inside_tiles, quantize_tiles, tiles, untile
+
+    b, h, w, _ = x.shape
+    xq, sx = quantize_tiles(tiles(x.float(), 2))
+    y1 = torch.relu(int_mm_conv3x3(xq, w1q, same=False) * (d1 * sx) + t1)
+    y1 = torch.where(inside_tiles(b, h, w, 1, x.device), y1, 0.0)
+    y1q, sy = quantize_tiles(y1)
+    out = torch.relu(int_mm_conv3x3(y1q, w2q, same=False) * (d2 * sy) + t2)
+    return untile(out, b, h, w)
+
+
+def up_qs_library(wtq, et, gt, waq, ea, wbq, eb, g1, w2q, e2, g2, x1q, x2q, float_out):
+    """up_block_qs_plain (kernel F) with torch._int_mm products."""
+    import torch
+
+    from popcorn_tpu_torch.nn.ops import pad_to_match
+    from popcorn_tpu_torch.nn.quant import QMAX, requant
+
+    b, h, w, _ = x1q.shape
+    up = requant(int_mm_tconv(x1q, wtq), et[:, None], gt, -QMAX).reshape(b, 2 * h, 2 * w, wtq.shape[3])
+    upq = pad_to_match(up, x2q)
+    y1 = int_mm_conv3x3(x2q, waq) * ea + int_mm_conv3x3(upq, wbq) * eb
+    y1q = torch.clamp(torch.round(y1 + g1), 0.0, QMAX).to(torch.int8)
+    acc2 = int_mm_conv3x3(y1q, w2q)
+    if float_out:
+        return torch.relu(acc2 * e2 + g2)
+    return requant(acc2, e2, g2, 0.0)
+
+
+def up_q_library(wtq, dt, tt, waq, da, wbq, db, t1, w2q, d2, t2, x1, x2):
+    """up_block_q_plain (kernel H) with torch._int_mm products."""
+    import torch
+    import torch.nn.functional as F
+
+    from popcorn_tpu_torch.nn.quant import inside_tiles, quantize_tiles, tiles, untile
+
+    b, hh, ww, _ = x2.shape
+    _, h, w, _ = x1.shape
+    oy, ox = (hh - 2 * h) // 2, (ww - 2 * w) // 2
+    dev = x2.device
+    x2q, s2x = quantize_tiles(tiles(x2.float(), 2))
+    pad = (0, 0, ox, ww - 2 * w - ox, oy, hh - 2 * h - oy)
+    src = x1.float().repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)
+    x1q, s1x = quantize_tiles(tiles(F.pad(src, pad), 2))
+    tap = (torch.arange(2, device=dev)[:, None] * 2 + torch.arange(2, device=dev)[None, :]).float()
+    tap = tap.repeat(h, w)[None, :, :, None]
+    region = F.pad(torch.cat([tap + 1.0, torch.ones_like(tap)], dim=-1), pad)
+    region = tiles(region, 2).repeat(b, 1, 1, 1)
+    inside, tap = region[..., 1:] > 0, (region[..., 0] - 1.0).clamp_min(0).long()
+    c1 = x1q.shape[-1]
+    up_acc = torch.stack([torch._int_mm(x1q.reshape(-1, c1), wtq[:, k // 2, k % 2, :].contiguous())
+                          .reshape(*x1q.shape[:3], -1).float() for k in range(4)], dim=-2)
+    up_acc = up_acc.gather(-2, tap[..., None, None].expand(*tap.shape, 1, up_acc.shape[-1]))[..., 0, :]
+    up = up_acc * (dt.reshape(4, -1)[tap] * s1x) + tt
+    upq, su = quantize_tiles(torch.where(inside, up, 0.0))
+    acc_a = int_mm_conv3x3(x2q, waq, same=False)
+    acc_b = int_mm_conv3x3(upq, wbq, same=False)
+    y1 = torch.relu(acc_a * (da * s2x) + acc_b * (db * su) + t1)
+    y1 = torch.where(inside_tiles(b, hh, ww, 1, dev), y1, 0.0)
+    y1q, sy = quantize_tiles(y1)
+    out = torch.relu(int_mm_conv3x3(y1q, w2q, same=False) * (d2 * sy) + t2)
+    return untile(out, b, hh, ww)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="stop after the kernel checks")
@@ -382,17 +527,26 @@ def main() -> None:
     secs = cuda_lib.build(force=True)
     emit({"phase": "build", "sources": list(cuda_lib.KERNEL_SOURCES), "seconds": round(secs, 3)})
     # registers, spills and shared memory of every kernel (ptxas -v), and
-    # the tensor-core MMAs in the SASS of A-D
+    # the tensor-core MMAs in the SASS of A-D, F and H (none of F's and H's
+    # instructions a __dp4a)
     for name in cuda_lib.KERNEL_SOURCES:
         rec = {"phase": "build_report", "source": name,
                "ptxas": cuda_lib.ptxas_usage(cuda_lib.build_logs[name])}
         if name in TENSOR_CORE_KERNELS:
-            hmma = cuda_lib.sass_count(name, "HMMA")
-            rec["sass_hmma"] = hmma
-            mains = [v for f, v in hmma.items() if TENSOR_CORE_KERNELS[name] in f]
-            if not mains or min(mains) == 0:
+            function, opcode = TENSOR_CORE_KERNELS[name]
+            mma = cuda_lib.sass_count(name, opcode)
+            rec[f"sass_{opcode.lower()}"] = mma
+            mains = [v for f, v in mma.items() if function in f]
+            bad = opcode not in ("HMMA", "IMMA") or not mains or min(mains) == 0
+            if opcode in NO_TENSOR_CORE_OPCODE:
+                other = NO_TENSOR_CORE_OPCODE[opcode]
+                off = {f: v for f, v in cuda_lib.sass_count(name, other).items() if function in f}
+                rec[f"sass_{other.lower().replace('.', '')}"] = off
+                bad = bad or any(off.values())
+            if bad:
                 emit(rec)
-                raise AssertionError(f"csrc/{name}.cu: a kernel holds no tensor-core MMA: {hmma}")
+                raise AssertionError(f"csrc/{name}.cu: a kernel holds no tensor-core MMA "
+                                     f"({opcode}) or a __dp4a: {rec}")
         emit(rec)
 
     # the other checkout's kernels, for --ab: built from its csrc/ with the
@@ -416,17 +570,21 @@ def main() -> None:
             ab_libs[n] = ctypes.CDLL(os.path.join(out_dir, f"lib{n}.so"))
         emit({"phase": "ab_build", "dir": args.ab, "sources": list(ab_libs)})
 
-    def ab_times(source, fn, function):
+    def ab_times(source, fn, function, parent_fn=None):
         """Wrapper and device times of ``fn`` with the other checkout's
         library of ``source`` and with this one's, in the order parent,
         change, change, parent: the wrappers find a library in cuda_lib's
-        table of loaded ones, where the other one stands in for a timing."""
+        table of loaded ones, where the other one stands in for a timing.
+        ``parent_fn`` runs in ``fn``'s place on the parent's side (a mode
+        the parent's library lacks, through its nearest entry); the
+        device time is then the sum of all the call's kernels."""
         own = cuda_lib.load(source)
         times = {"parent": [], "change": []}
         for side in ("parent", "change", "change", "parent"):
             cuda_lib._libs[source] = ab_libs[source] if side == "parent" else own
+            run = parent_fn if side == "parent" and parent_fn is not None else fn
             try:
-                times[side].append((time_ms(fn), device_ms(fn, function)))
+                times[side].append((time_ms(run), device_ms(run, "" if parent_fn else function)))
             finally:
                 cuda_lib._libs[source] = own
             torch.cuda.synchronize()
@@ -503,14 +661,21 @@ def main() -> None:
     cases = []  # one per checked call: kernel, name, member-forward multiplicity
 
     def check_case(kernel, name, mult, kern_fn, plain_fn, lib_fn, flops, nbytes,
-                   peak=None):
+                   peak=None, exact=False, ab_parent=None):
         """Hold the kernel against its plain version (int8 outputs bit for
-        bit, float ones at RTOL/ATOL), time both and the library call (None:
-        there is none), and record the case."""
+        bit, and with ``exact`` any output; float ones at RTOL/ATOL, bf16
+        at BF16_ULP), time both and the library call, and record the case.
+        ``ab_parent``: what --ab times on the parent's side instead of
+        ``kern_fn`` (ab_times)."""
         got = kern_fn()
         torch.cuda.synchronize()
         ref = plain_fn()
         torch.cuda.synchronize()
+        if exact and got.dtype != torch.int8:
+            n_diff = int((got != ref).sum()) if got.dtype == ref.dtype else -1
+            if got.shape != ref.shape or n_diff:
+                raise AssertionError(f"{name}: {n_diff} values differ from the plain version's "
+                                     f"(or dtype {got.dtype} vs {ref.dtype})")
         if got.dtype == torch.int8:
             if got.shape != ref.shape or ref.dtype != torch.int8:
                 raise AssertionError(f"{name}: {got.shape} int8 vs {ref.shape} {ref.dtype}")
@@ -526,9 +691,10 @@ def main() -> None:
         function = kernel.replace("_bf16", "") + "_kernel"
         k_ms = time_ms(kern_fn)
         d_ms = device_ms(kern_fn, function)
-        ab = ab_times(kernel.replace("_bf16", ""), kern_fn, function) if ab_libs else {}
+        source = kernel.replace("_bf16", "")
+        ab = ab_times(source, kern_fn, function, ab_parent) if ab_libs else {}
         p_ms = time_ms(plain_fn)
-        l_ms = time_ms(lib_fn) if lib_fn is not None else None
+        l_ms = time_ms(lib_fn)
         if peak is None:  # a float32 kernel (A-D)
             bounds = float_bounds(kernel, flops, nbytes)
         else:
@@ -543,8 +709,8 @@ def main() -> None:
             "kernel_ms": k_ms, "device_ms": d_ms, "plain_ms": p_ms, "library_ms": l_ms,
             **bounds, "gflop": flops / 1e9, "mbytes": nbytes / 1e6, **ab,
         }
-        if lib_fn is None:
-            case["library_note"] = NO_INT8_LIBRARY
+        if exact:
+            case["exact"] = True
         emit(case)
         cases.append(case)
 
@@ -738,17 +904,26 @@ def main() -> None:
         ops, nb = dc_cost(xq, p, 1, 4 if fo else 1)
         check_case("double_conv_qs", f"{name} {shape_name(xq)}", mult,
                    lambda: A.double_conv_qs_cuda(*a, xq, fo), lambda: A.double_conv_qs_plain(*a, xq, fo),
-                   None, ops, nb, PEAK_INT8_OPS)
+                   lambda: dc_qs_library(*a, xq, fo), ops, nb, PEAK_INT8_OPS)
         return A.double_conv_qs_cuda(*a, xq, fo)
 
-    def f_case(name, mult, stream, block, x1q, x2q, s_x1, s_x2, s_up, s_y1, s_out):
+    def f_case(name, mult, stream, block, x1q, x2q, s_x1, s_x2, s_up, s_y1, s_out, odt=None):
+        """Kernel F: int8 out (s_out), float32 features, or (odt bf16)
+        bf16 features, which must be the plain version's float32 features
+        rounded to bf16: the integer sums are exact and the epilogue
+        rounds as the plain version, so the float features are equal bit
+        for bit too."""
         p, bn = unet[stream][block], unet_bn[stream][block]
         a, fo = B.qs_args(p, bn, s_x1, s_x2, s_up, s_y1, s_out), s_out is None
-        ops, nb = up_cost(x1q, x2q, p, 1, 4 if fo else 1)
-        check_case("up_block_qs", f"{name} {shape_name(x1q, x2q)}", mult,
-                   lambda: B.up_block_qs_cuda(*a, x1q, x2q, fo),
-                   lambda: B.up_block_qs_plain(*a, x1q, x2q, fo), None, ops, nb, PEAK_INT8_OPS)
-        return B.up_block_qs_cuda(*a, x1q, x2q, fo)
+        bf = odt == bf16
+        ops, nb = up_cost(x1q, x2q, p, 1, (2 if bf else 4) if fo else 1)
+        to = (lambda t: t.to(bf16)) if bf else (lambda t: t)
+        check_case("up_block_qs_bf16" if bf else "up_block_qs", f"{name} {shape_name(x1q, x2q)}", mult,
+                   lambda: B.up_block_qs_cuda(*a, x1q, x2q, fo, odt),
+                   lambda: to(B.up_block_qs_plain(*a, x1q, x2q, fo)),
+                   lambda: to(up_qs_library(*a, x1q, x2q, fo)), ops, nb, PEAK_INT8_OPS, exact=True,
+                   ab_parent=(lambda: B.up_block_qs_cuda(*a, x1q, x2q, fo).to(bf16)) if bf else None)
+        return B.up_block_qs_cuda(*a, x1q, x2q, fo, odt)
 
     def g_case(name, mult, stream, block, x):
         p, bn = unet[stream][block], unet_bn[stream][block]
@@ -756,15 +931,26 @@ def main() -> None:
         ops, nb = dc_cost(x, p, 4, 4)
         check_case("double_conv_q", f"{name} {shape_name(x)}", mult,
                    lambda: A.double_conv_q_cuda(*a, x), lambda: A.double_conv_q_plain(*a, x),
-                   None, ops, nb, PEAK_INT8_OPS)
+                   lambda: dc_q_library(*a, x), ops, nb, PEAK_INT8_OPS)
 
     def h_case(name, mult, stream, block, x1, x2):
+        """Kernel H in float32, and in its bf16 mode on the same inputs
+        rounded to bf16, held to the plain version's float32 output
+        rounded to bf16 at BF16_ULP (float32 outputs at RTOL/ATOL, as PR
+        3's kernel)."""
         p, bn = unet[stream][block], unet_bn[stream][block]
         a = B.q_args(p, bn)
-        ops, nb = up_cost(x1, x2, p, 4, 4)
-        check_case("up_block_q", f"{name} {shape_name(x1, x2)}", mult,
-                   lambda: B.up_block_q_cuda(*a, x1, x2), lambda: B.up_block_q_plain(*a, x1, x2),
-                   None, ops, nb, PEAK_INT8_OPS)
+        for x1m, x2m, esz, kernel in ((x1, x2, 4, "up_block_q"),
+                                      (x1.to(bf16), x2.to(bf16), 2, "up_block_q_bf16")):
+            ops, nb = up_cost(x1m, x2m, p, esz, esz)
+            to = (lambda t: t.to(x2m.dtype))
+            check_case(kernel, f"{name} {shape_name(x1m, x2m)}", mult,
+                       lambda: B.up_block_q_cuda(*a, x1m, x2m),
+                       lambda: to(B.up_block_q_plain(*a, x1m.float(), x2m.float())),
+                       lambda: to(up_q_library(*a, x1m.float(), x2m.float())), ops, nb,
+                       PEAK_INT8_OPS,
+                       ab_parent=((lambda: B.up_block_q_cuda(*a, x1m.float(), x2m.float()).to(bf16))
+                                  if esz == 2 else None))
 
     x6 = torch.randn(1, P, P, 6, device=dev, generator=g)
     xs, xo = x6[..., :2].contiguous(), x6[..., 2:].contiguous()
@@ -777,8 +963,12 @@ def main() -> None:
     qd2 = e_case("down2", 2, "sar", "down2", max_pool_2x2(qd1), s["down1_out"], s["down2_y1"], s["down2_out"])
     qu2 = f_case("up2", 2, "sar", "up2", qd2, qd1, s["down2_out"], s["down1_out"], s["up2_up"],
                  s["up2_y1"], s["up2_out"])
+    # up1's float features: bf16 on the eval's default path, float32 on
+    # the int8s eval's at --compute_dtype float32
     f_case("up1_float_out", 2, "sar", "up1", qu2, qx1, s["up2_out"], s["inc_out"], s["up1_up"],
            s["up1_y1"], None)
+    f_case("up1_bf16_out", 2, "sar", "up1", qu2, qx1, s["up2_out"], s["inc_out"], s["up1_up"],
+           s["up1_y1"], None, bf16)
     del qx1, qd1, qd2, qu2
     with torch.no_grad():
         fx1 = A.double_conv_cuda(unet["sar"]["inc"], unet_bn["sar"]["inc"], xs)
@@ -887,7 +1077,9 @@ def main() -> None:
                     "up_block": (B, "launches"), "up_block_bf16": (B, "launches_bf16"),
                     "head": (C, "launches"), "head_bf16": (C, "launches_bf16"),
                     "double_conv_qs": (A, "launches_qs"), "up_block_qs": (B, "launches_qs"),
-                    "double_conv_q": (A, "launches_q"), "up_block_q": (B, "launches_q")}
+                    "up_block_qs_bf16": (B, "launches_qs_bf16"),
+                    "double_conv_q": (A, "launches_q"), "up_block_q": (B, "launches_q"),
+                    "up_block_q_bf16": (B, "launches_q_bf16")}
 
         def reset_launches():
             for mod, attr in counters.values():
@@ -1006,7 +1198,9 @@ def main() -> None:
                     f"quant_{mode}", want=want,
                     config=lambda c: dataclasses.replace(c, quantize="int8", pallas_stream=True))
             else:
-                extra = () if mode == "unquantized" else ("--quantize", mode)
+                quant, _, cdt = mode.partition("_")
+                extra = (() if mode == "unquantized" else ("--quantize", quant)) + (
+                    ("--compute_dtype", cdt) if cdt else ())
                 stats_q, q_wall, got_l, folder_glob = run_eval(f"quant_{mode}", extra, want)
             quant_launches[mode] = got_l
             q_r2 = stats_q["Population_AdjCensus_rwa_coarse/r2"]
@@ -1014,7 +1208,8 @@ def main() -> None:
             q_map = read_map(folder_glob)
             corr = float(np.corrcoef(main_map.ravel(), q_map.ravel())[0, 1])
             emit({
-                "phase": "quant", "mode": mode, "compute_dtype": "bfloat16", "patches": n_patches,
+                "phase": "quant", "mode": mode, "patches": n_patches,
+                "compute_dtype": "float32" if mode.endswith("float32") else "bfloat16",
                 "wall_s": q_wall, "patches_per_s": n_patches / q_wall, "main_wall_s": wall,
                 "main_patches_per_s": n_patches / wall, "launches": got_l,
                 "r2_deltas": deltas, "r2_bound": QUANT_R2_BOUND, "map_corr": corr,
@@ -1287,14 +1482,16 @@ def main() -> None:
     # ---------------------------------------------------------------- summary
     # each kernel's launches from the run of its own path: A-C in bf16 the
     # main eval at the default dtype, in float32 its float32 run, D
-    # training, E/F the int8s eval, G/H the int8 eval
+    # training, E and F's bf16 mode the int8s eval, F (int8 out and float32
+    # features) the int8s eval at float32, G and H's bf16 mode the int8
+    # eval, H's float32 mode the int8 eval at float32
     launches = {**{k: launches[k] for k in MAIN_LAUNCHES},
                 **{k: launches32[k] for k in ("double_conv", "up_block", "head")},
                 "head_bwd": train_launches["head_bwd"],
-                "double_conv_qs": quant_launches["int8s"]["double_conv_qs"],
-                "up_block_qs": quant_launches["int8s"]["up_block_qs"],
-                "double_conv_q": quant_launches["int8"]["double_conv_q"],
-                "up_block_q": quant_launches["int8"]["up_block_q"]}
+                **{k: quant_launches["int8s"][k] for k in ("double_conv_qs", "up_block_qs_bf16")},
+                "up_block_qs": quant_launches["int8s_float32"]["up_block_qs"],
+                **{k: quant_launches["int8"][k] for k in ("double_conv_q", "up_block_q_bf16")},
+                "up_block_q": quant_launches["int8_float32"]["up_block_q"]}
     meta = {
         "double_conv": ("popcorn_tpu_torch/csrc/double_conv.cu", "popcorn_tpu/nn/pallas_conv.py:101"),
         "double_conv_bf16": ("popcorn_tpu_torch/csrc/double_conv.cu",
@@ -1306,8 +1503,12 @@ def main() -> None:
         "head_bwd": ("popcorn_tpu_torch/csrc/head_bwd.cu", "popcorn_tpu/nn/pallas_head.py:56"),
         "double_conv_qs": ("popcorn_tpu_torch/csrc/double_conv_qs.cu", "popcorn_tpu/nn/pallas_conv.py:235"),
         "up_block_qs": ("popcorn_tpu_torch/csrc/up_block_qs.cu", "popcorn_tpu/nn/pallas_conv.py:282"),
+        "up_block_qs_bf16": ("popcorn_tpu_torch/csrc/up_block_qs.cu",
+                             "popcorn_tpu/nn/pallas_conv.py:282"),
         "double_conv_q": ("popcorn_tpu_torch/csrc/double_conv_q.cu", "popcorn_tpu/nn/pallas_conv.py:163"),
         "up_block_q": ("popcorn_tpu_torch/csrc/up_block_q.cu", "popcorn_tpu/nn/pallas_conv.py:533"),
+        "up_block_q_bf16": ("popcorn_tpu_torch/csrc/up_block_q.cu",
+                            "popcorn_tpu/nn/pallas_conv.py:533"),
     }
     kernels = []
     for kname, (src, replaces) in meta.items():
@@ -1316,7 +1517,6 @@ def main() -> None:
         tot = lambda key: sum(c[key] * c["per_member_calls"] for c in on_path)  # noqa: E731
         b_ops = sum(c["ops_ms"] * c["per_member_calls"] for c in on_path)
         b_bytes = sum(c["mbytes"] * 1e6 * c["per_member_calls"] for c in on_path) / PEAK_HBM_BYTES * 1e3
-        no_lib = any(c["library_ms"] is None for c in on_path)
         no_dev = any(c["device_ms"] is None for c in on_path)
         entry = {
             "name": kname, "route": "cuda", "source": src, "replaces": replaces,
@@ -1325,7 +1525,7 @@ def main() -> None:
             "ms": tot("kernel_ms"), "device_ms": None if no_dev else tot("device_ms"),
             "plain_ms": tot("plain_ms"), "bound_ms": tot("bound_ms"),
             "bound_by": "operations" if b_ops >= b_bytes else "bytes",
-            "library_ms": None if no_lib else tot("library_ms"),
+            "library_ms": tot("library_ms"),
         }
         if kname in DESIGNED_AGAINST:
             entry["bound_fp32_ms"] = tot("bound_fp32_ms")

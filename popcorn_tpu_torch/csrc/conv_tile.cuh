@@ -1,6 +1,6 @@
-// conv_tile.cuh — the tile geometry of the int8 kernels E-H (through
-// conv_tile_i8.cuh) and a staging helper for their float vectors. Kernels A
-// and B keep their own tensor-core tilings (double_conv.cu, up_block.cu).
+// conv_tile.cuh — the tile geometry of the int8 kernels E and G (through
+// conv_tile_i8.cuh) and a staging helper for their float vectors. Kernels
+// A, B, F and H keep their own tensor-core tilings.
 //
 // A block owns one TH x TW output tile of one image. Its input is staged
 // with a 2-pixel halo, the first conv runs on the (TH+2) x (TW+2) ring, and

@@ -1,5 +1,6 @@
-// conv_tile_i8.cuh — int8 tile helpers for the quantized UNet-block kernels
-// (double_conv_qs.cu, up_block_qs.cu, double_conv_q.cu, up_block_q.cu).
+// conv_tile_i8.cuh — int8 tile helpers of the quantized DoubleConv kernels
+// E and G (double_conv_qs.cu, double_conv_q.cu). The Up-block kernels F and
+// H run on the int8 tensor cores instead (int8_mma.cuh).
 //
 // Tiles as in conv_tile.cuh: a block owns one TH x TW output tile, stages
 // its input with a 2-pixel halo, computes y1 on the (TH+2) x (TW+2) ring
@@ -12,20 +13,16 @@
 // __dp4a into an int32 accumulator: exact, as a conv over at most 32
 // channels sums at most 288 products of |code| <= 127.
 //
-// Dequantization and requantization round as the plain versions (and XLA
-// in the JAX package) do: a product and a sum, each rounded on its own
-// (__fmul_rn/__fadd_rn, so nvcc does not contract them into an FMA), then
-// rintf, which rounds half to even as torch.round and jnp.round do.
+// Dequantization and requantization (affine, code) are int8_mma.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "conv_tile.cuh"
+#include "int8_mma.cuh"
 
 namespace popcorn {
-
-__host__ __device__ constexpr int align16(int n) { return (n + 15) & ~15; }
 
 // Stage a th x tw window of one NHWC int8 image (C channels), top-left at
 // global (gy0, gx0), into `dst` (P bytes a pixel) from byte c_off. Zero
@@ -51,16 +48,6 @@ __device__ __forceinline__ void load_tile_i8(int8_t* dst, int c_off,
 
 __device__ __forceinline__ void copy_words(int* dst, const int* __restrict__ src, int n) {
   for (int i = threadIdx.x; i < n; i += blockDim.x) dst[i] = __ldg(src + i);
-}
-
-// acc * e + g, each step rounded on its own
-__device__ __forceinline__ float affine(int acc, float e, float g) {
-  return __fadd_rn(__fmul_rn(__int2float_rn(acc), e), g);
-}
-
-// the int8 code of v: clip(round(v), lo, 127)
-__device__ __forceinline__ int8_t code(float v, float lo) {
-  return (int8_t)(int)fminf(fmaxf(rintf(v), lo), 127.f);
 }
 
 // acc[o] += the 3x3 conv, at output pixel (oy, ox), of the G channel words

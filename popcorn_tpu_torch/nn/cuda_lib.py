@@ -141,9 +141,10 @@ def ptxas_usage(log: str) -> List[Dict[str, object]]:
 
 
 def sass_count(name: str, opcode: str) -> Dict[str, int]:
-    """How many instructions of ``opcode`` (e.g. "HMMA", the tensor-core
-    MMA) each kernel function of ``csrc/<name>.cu``'s built library holds,
-    from ``cuobjdump -sass``."""
+    """How many instructions of ``opcode`` (e.g. "HMMA" or "IMMA", the
+    tensor-core MMAs on float and int8 operands, or "IDP.4A", __dp4a)
+    each kernel function of ``csrc/<name>.cu``'s built library holds, from
+    ``cuobjdump -sass``."""
     tool = os.path.join(os.path.dirname(_nvcc()), "cuobjdump")
     sass = subprocess.run([tool, "-sass", _paths(name)[1]], capture_output=True, text=True,
                           check=True).stdout
@@ -154,7 +155,7 @@ def sass_count(name: str, opcode: str) -> Dict[str, int]:
         if m:
             fn = m.group(1)
             counts[fn] = 0
-        elif fn is not None and re.search(rf"\b{opcode}\b", line):
+        elif fn is not None and re.search(rf"\b{re.escape(opcode)}\b", line):
             counts[fn] += 1
     return counts
 

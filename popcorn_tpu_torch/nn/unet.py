@@ -30,11 +30,11 @@ package's Pallas kernels do, the trainable blocks as its XLA ops do
 
 Quantized eval. ``quantize=True`` (``ModelConfig.quantize == 'int8'``)
 runs the blocks through the dynamic int8 kernels G (DoubleConv) and H (Up
-block), with the JAX engine's shape rule (popcorn_tpu/nn/packed.py::
-packed_unet_stream): all five blocks when H % 4 == W % 4 == 0; when only
-H % 2 == W % 2 == 0, up2 stays float (the JAX package runs it through its
-plain XLA block there); otherwise every block stays float (its plain
-engine). ``unet_stream_qs`` is the static int8 stream ('int8s'/'w4a8'),
+block, reading and writing the compute dtype), with the JAX engine's
+shape rule (popcorn_tpu/nn/packed.py::packed_unet_stream): all five
+blocks when H % 4 == W % 4 == 0; when only H % 2 == W % 2 == 0, up2 stays
+float (the JAX package runs it through its plain XLA block there);
+otherwise every block stays float (its plain engine). ``unet_stream_qs`` is the static int8 stream ('int8s'/'w4a8'),
 kernels E and F end to end with int8 block I/O, for calibrated scales and
 H % 4 == W % 4 == 0.
 """
@@ -149,9 +149,9 @@ def unet_stream_qs(
     popcorn_tpu/nn/packed.py::packed_unet_stream_qs): the input quantized
     at ``scales['in']`` from its float32 value, every block through kernel
     E or F with int8 block I/O, max-pooling on the int8 codes (the max of
-    codes is the code of the max), float features out of up1: float32,
-    rounded to ``dtype`` when given (the JAX kernel writes them in the
-    compute dtype). Needs H % 4 == W % 4 == 0."""
+    codes is the code of the max), float features out of up1: float32, or
+    in ``dtype`` when given (the JAX kernel writes them in the compute
+    dtype; kernel F rounds them to bf16 itself). Needs H % 4 == W % 4 == 0."""
     if x.shape[1] % 4 or x.shape[2] % 4:
         raise ValueError(f"unet_stream_qs: input {tuple(x.shape)} needs H and W divisible by 4")
     s = scales
@@ -165,8 +165,8 @@ def unet_stream_qs(
         u2 = up_block_qs(p["up2"], bn["up2"], d2, d1, s["down2_out"], s["down1_out"],
                          s["up2_up"], s["up2_y1"], s["up2_out"], wbits)
         u1 = up_block_qs(p["up1"], bn["up1"], u2, x1, s["up2_out"], s["inc_out"],
-                         s["up1_up"], s["up1_y1"], None, wbits)
-    return u1 if dtype is None else u1.to(dtype)
+                         s["up1_up"], s["up1_y1"], None, wbits, dtype)
+    return u1
 
 
 def dual_stream_features(

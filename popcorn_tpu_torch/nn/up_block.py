@@ -20,14 +20,18 @@ Kernel F (csrc/up_block_qs.cu), static int8: counterpart of
 s_x1, the skip at s_x2); the tconv output requantized at s_up, clipped at
 -127 (the reference tconv has no ReLU); conv1 as two parts, skip and up,
 each with its own weight scales; y1 at s_y1 clipped at 0; int8 out at
-s_out or float32 (up1, the stream's last block). The tconv's weight scales
-are per (tap, channel) (nn/quant.py::quantize_tconv_weight): the kernel
-picks them by the fine pixel's parity.
+s_out, or float features (up1, the stream's last block) in float32 or
+rounded to bf16 in the kernel. The tconv's weight scales are per (tap,
+channel) (nn/quant.py::quantize_tconv_weight): the kernel picks them by
+the tap of the fine pixel.
 
 Kernel H (csrc/up_block_q.cu), dynamic int8: counterpart of
-``fused_up_block(quantized=True)`` (``_up_block_kernel_q``). float32 in and
-out; per TILE x TILE output tile, the gathered coarse input, the up tile,
-the skip tile and the y1 ring each take one scale from their own max-abs.
+``fused_up_block(quantized=True)`` (``_up_block_kernel_q``). float32 or
+bf16 in and out (a bf16 value widens to float32 exactly; the output is
+rounded to nearest even); per TILE x TILE output tile, the gathered
+coarse input, the up tile, the skip tile and the y1 ring each take one
+scale from their own max-abs. F and H run on the int8 tensor cores
+(csrc/int8_mma.cuh).
 
 Each public function takes the plain version for a tensor on the CPU and
 launches the CUDA kernel for a tensor on the card; there is no fallback
@@ -62,12 +66,14 @@ from .quant import (
 
 Tree = Dict[str, Any]
 
-# launches of kernels B (float32 and bf16 modes apart), F and H, each
-# counted where its wrapper launches it
+# launches of kernels B, F and H, each counted where its wrapper launches
+# it, with the bf16 modes apart: B's and H's bf16 I/O, F's bf16 features
 launches = 0
 launches_bf16 = 0
 launches_qs = 0
+launches_qs_bf16 = 0
 launches_q = 0
+launches_q_bf16 = 0
 
 
 def up_block_ops(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -229,10 +235,25 @@ def up_block_qs_plain(wtq, et, gt, waq, ea, wbq, eb, g1, w2q, e2, g2,
     return requant(acc2, e2, g2, 0.0)
 
 
+def qs_out_dtype(float_out: bool, dtype=None) -> torch.dtype:
+    """Kernel F's output dtype: int8 codes, or the float features in
+    ``dtype`` (float32 when None; bf16 is rounded in the kernel)."""
+    if not float_out:
+        return torch.int8
+    dt = dtype or torch.float32
+    if dt not in (torch.float32, torch.bfloat16):
+        raise TypeError(
+            f"up_block_qs: float features in {dt}; the kernel writes float32 or bfloat16")
+    return dt
+
+
 def up_block_qs_cuda(wtq, et, gt, waq, ea, wbq, eb, g1, w2q, e2, g2,
-                     x1q: torch.Tensor, x2q: torch.Tensor, float_out: bool) -> torch.Tensor:
-    """Launch kernel F on contiguous int8 NHWC CUDA tensors."""
-    global launches_qs
+                     x1q: torch.Tensor, x2q: torch.Tensor, float_out: bool,
+                     out_dtype=None) -> torch.Tensor:
+    """Launch kernel F on contiguous int8 NHWC CUDA tensors; float
+    features in ``out_dtype`` (float32 or bfloat16; float32 when None)."""
+    global launches_qs, launches_qs_bf16
+    odt = qs_out_dtype(float_out, out_dtype)
     # tconv codes (C1, 2, 2, Cu) -> (4 taps, C1/4, Cu) words
     wtp = pack_dp4a(wtq.permute(1, 2, 0, 3))
     wap, wbp, w2p = pack_dp4a(waq), pack_dp4a(wbq), pack_dp4a(w2q)
@@ -242,36 +263,47 @@ def up_block_qs_cuda(wtq, et, gt, waq, ea, wbq, eb, g1, w2q, e2, g2,
         (wbp, i8), (eb, f32), (g1, f32), (w2p, i8), (e2, f32), (g2, f32)])
     b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout = _check_up(
         "up_block_qs", x1q, x2q, wtq, waq, wbq, w2q)
-    out = torch.empty((b, hh, ww, cout), device=x2q.device, dtype=f32 if float_out else i8)
+    out = torch.empty((b, hh, ww, cout), device=x2q.device, dtype=odt)
     if out.numel() == 0:
         return out
-    fn = cuda_lib.function(
-        "up_block_qs", "popcorn_up_block_qs",
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
-    )
     P = cuda_lib.ptr
-    rc = fn(
-        P(x1q), P(x2q), P(wtp), P(et), P(gt), P(wap), P(ea), P(wbp), P(eb), P(g1),
-        P(w2p), P(e2), P(g2), P(out),
-        b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout, int(float_out),
-        cuda_lib.stream_ptr(x2q.device),
-    )
+    args = [P(x1q), P(x2q), P(wtp), P(et), P(gt), P(wap), P(ea), P(wbp), P(eb), P(g1),
+            P(w2p), P(e2), P(g2), P(out), b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout]
+    if odt == torch.bfloat16:
+        fn = cuda_lib.function(
+            "up_block_qs", "popcorn_up_block_qs_bf16",
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
+        )
+        rc = fn(*args, cuda_lib.stream_ptr(x2q.device))
+    else:
+        fn = cuda_lib.function(
+            "up_block_qs", "popcorn_up_block_qs",
+            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
+        )
+        rc = fn(*args, int(float_out), cuda_lib.stream_ptr(x2q.device))
     cuda_lib.check(rc, "up_block_qs")
-    launches_qs += 1
+    if odt == torch.bfloat16:
+        launches_qs_bf16 += 1
+    else:
+        launches_qs += 1
     return out
 
 
 def up_block_qs(
     p: Tree, bn: Tree, x1q: torch.Tensor, x2q: torch.Tensor,
-    s_x1, s_x2, s_up, s_y1, s_out=None, wbits: int = 8,
+    s_x1, s_x2, s_up, s_y1, s_out=None, wbits: int = 8, dtype=None,
 ) -> torch.Tensor:
     """Static int8 Up block: coarse int8 ``x1q`` at ``s_x1`` and skip
-    ``x2q`` at ``s_x2`` -> int8 at ``s_out``, or float32 when ``s_out`` is
-    None. Plain PyTorch on the CPU, kernel F on CUDA."""
+    ``x2q`` at ``s_x2`` -> int8 at ``s_out``, or float features when
+    ``s_out`` is None, in ``dtype`` (float32 when None; bf16 rounded to
+    nearest even). Plain PyTorch on the CPU (float32, then rounded),
+    kernel F on CUDA (which rounds itself)."""
+    float_out = s_out is None
+    odt = qs_out_dtype(float_out, dtype)
     args = qs_args(p, bn, s_x1, s_x2, s_up, s_y1, s_out, wbits)
     if x2q.device.type == "cpu":
-        return up_block_qs_plain(*args, x1q, x2q, s_out is None)
-    return up_block_qs_cuda(*args, x1q, x2q, s_out is None)
+        return up_block_qs_plain(*args, x1q, x2q, float_out).to(odt)
+    return up_block_qs_cuda(*args, x1q, x2q, float_out, odt)
 
 
 # ------------------------------------------------------------ kernel H (int8)
@@ -328,23 +360,34 @@ def up_block_q_plain(wtq, dt, tt, waq, da, wbq, db, t1, w2q, d2, t2,
     return untile(out, b, hh, ww)
 
 
+def q_io_dtype(x1: torch.Tensor, x2: torch.Tensor) -> torch.dtype:
+    """The I/O dtype kernel H runs for these inputs: bfloat16 when both
+    are bf16 (its bf16 mode, no conversion), else float32 (inputs widened,
+    which is exact from bf16 and float16)."""
+    if x1.dtype == x2.dtype == torch.bfloat16:
+        return torch.bfloat16
+    return torch.float32
+
+
 def up_block_q_cuda(wtq, dt, tt, waq, da, wbq, db, t1, w2q, d2, t2,
                     x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Launch kernel H on contiguous float32 NHWC CUDA tensors."""
-    global launches_q
+    """Launch kernel H on contiguous NHWC CUDA tensors, both float32 or
+    both bfloat16; the output is in their dtype."""
+    global launches_q, launches_q_bf16
     wtp = pack_dp4a(wtq.permute(1, 2, 0, 3))
     wap, wbp, w2p = pack_dp4a(waq), pack_dp4a(wbq), pack_dp4a(w2q)
     i8, f32 = torch.int8, torch.float32
+    io = storage_dtype("up_block_q", x2)
     cuda_lib.require_cuda("up_block_q", [
-        (x1, f32), (x2, f32), (wtp, i8), (dt, f32), (tt, f32), (wap, i8), (da, f32),
+        (x1, io), (x2, io), (wtp, i8), (dt, f32), (tt, f32), (wap, i8), (da, f32),
         (wbp, i8), (db, f32), (t1, f32), (w2p, i8), (d2, f32), (t2, f32)])
     b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout = _check_up(
         "up_block_q", x1, x2, wtq, waq, wbq, w2q)
-    out = torch.empty((b, hh, ww, cout), device=x2.device, dtype=f32)
+    out = torch.empty((b, hh, ww, cout), device=x2.device, dtype=io)
     if out.numel() == 0:
         return out
     fn = cuda_lib.function(
-        "up_block_q", "popcorn_up_block_q",
+        "up_block_q", f"popcorn_up_block_q{'_bf16' if io == torch.bfloat16 else ''}",
         [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
     )
     P = cuda_lib.ptr
@@ -354,19 +397,21 @@ def up_block_q_cuda(wtq, dt, tt, waq, da, wbq, db, t1, w2q, d2, t2,
         b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout, cuda_lib.stream_ptr(x2.device),
     )
     cuda_lib.check(rc, "up_block_q")
-    launches_q += 1
+    if io == torch.bfloat16:
+        launches_q_bf16 += 1
+    else:
+        launches_q += 1
     return out
 
 
 def up_block_q(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
-    """Dynamic int8 Up block, out in x2's dtype: plain PyTorch on the CPU,
-    kernel H on CUDA. Kernel H reads and writes float32: bfloat16 inputs
-    are widened (exactly) and the output rounded to bf16, the JAX kernel's
-    rounding (nn/double_conv.py::double_conv_q)."""
+    """Dynamic int8 Up block, out in x2's dtype, the JAX kernel's rounding
+    (nn/double_conv.py::double_conv_q): the inputs widened (exactly) to
+    float32, the output rounded to x2's dtype. Plain PyTorch on the CPU;
+    on CUDA kernel H, which takes two bfloat16 inputs as they are
+    (``q_io_dtype``) and rounds its output itself."""
     args = q_args(p, bn)
-    x1f, x2f = x1.float(), x2.float()
     if x2.device.type == "cpu":
-        out = up_block_q_plain(*args, x1f, x2f)
-    else:
-        out = up_block_q_cuda(*args, x1f, x2f)
-    return out.to(x2.dtype)
+        return up_block_q_plain(*args, x1.float(), x2.float()).to(x2.dtype)
+    io = q_io_dtype(x1, x2)
+    return up_block_q_cuda(*args, x1.to(io), x2.to(io)).to(x2.dtype)

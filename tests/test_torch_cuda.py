@@ -4,7 +4,11 @@ tiles, pad_to_match rings (also with a top/left offset), a pixel count no
 multiple of the head's block, the head backward (kernel D) at pixel
 counts of 1, one tile plus one and ragged shapes, the int8 kernels E-H at
 the same odd sizes (int8 outputs bit-equal to their plain versions), and
-the wrappers' refusals, including of tensors that need a gradient. The
+the wrappers' refusals, including of tensors that need a gradient. Kernels
+F and H run on the int8 tensor cores in 32x32 and 16x32 regions: they are
+held at ragged regions, offset pad rings, 519^2 -> 1038^2 and views off
+16-byte alignment, in every output mode (F: int8, float32, bf16; H:
+float32 and bf16 I/O). The
 tensor-core tilings of kernels A (TH x 30 output tiles, TH 14 in float32
 at 16 intermediate channels and 30 otherwise), B (TH x 30, TH 14 at 32
 conv1 channels and 28 at 16) and D (64-pixel tiles on a persistent grid
@@ -454,6 +458,120 @@ def test_up_block_q_kernel_pad_ring(dev, c1, cs, skip_hw, coarse_hw):
     got = B.up_block_q_cuda(*args, x1, x2)
     assert B.launches_q == before + 1
     torch.testing.assert_close(got, B.up_block_q_plain(*args, x1, x2), **TOL)
+
+
+# Kernels F (32x32 output regions) and H (16x32: two 16x16 scale tiles)
+# on the int8 tensor cores, in both instantiations: one region exactly,
+# one region plus one pixel both ways (ragged last regions), a region
+# whose second scale tile is ragged (H) or lies past the image, pad rings
+# with oy/ox > 0 (even and odd), the builder's odd 519^2 -> 1038^2 and a
+# single partial region.
+INT8_TC_SHAPES = [((32, 32), (16, 16)), ((33, 33), (16, 16)), ((16, 40), (8, 20)),
+                  ((40, 22), (18, 9)), ((103, 69), (50, 33)), ((1038, 1038), (519, 519)),
+                  ((3, 5), (1, 2))]
+INT8_TC_IDS = ["region", "region_plus_1", "ragged_tile", "offset", "odd_offset", "builder_odd",
+               "tiny"]
+
+
+def _f_case(g, dev, c, skip_hw, coarse_hw, int8_out):
+    p, bn, x1, x2 = _up_case(g, dev, c, c, skip_hw, coarse_hw)
+    s_x1, s_x2 = _amax_scale(x1), _amax_scale(x2)
+    up = pad_to_match(conv_transpose_2x2(x1, p["tconv"]), x2)
+    y1 = torch.relu(frozen_bn(conv3x3(torch.cat([x2, up], -1), p["conv"]["conv1"]), bn["bn1"]))
+    s_out = _amax_scale(B.up_block_plain(p, bn, x1, x2)) if int8_out else None
+    args = B.qs_args(p, bn, s_x1, s_x2, _amax_scale(up), _amax_scale(y1), s_out)
+    return args, quant.quantize_static(x1, s_x1), quant.quantize_static(x2, s_x2)
+
+
+def _off_alignment(t):
+    """A contiguous copy of t whose data starts 8 bytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    buf = torch.empty(t.numel() * t.element_size() + 16, dtype=torch.uint8, device=t.device)
+    v = buf[8:8 + t.numel() * t.element_size()].view(t.dtype).view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == 8 and v.is_contiguous()
+    return v
+
+
+@pytest.mark.parametrize("out", ["int8", "float32", "bf16"])
+@pytest.mark.parametrize("c", [16, 8], ids=["up2", "up1"])
+@pytest.mark.parametrize("skip_hw,coarse_hw", INT8_TC_SHAPES, ids=INT8_TC_IDS)
+def test_up_block_qs_kernel_tensor_core_tiling(dev, skip_hw, coarse_hw, c, out):
+    """Kernel F: int8 codes and float32 features bit-equal to the plain
+    version's; bf16 features equal to its float32 features rounded to
+    bf16 (the integer sums are exact and the epilogue rounds as the plain
+    version does, so the float32 value before the rounding is equal too)."""
+    g = torch.Generator().manual_seed(900 + c + skip_hw[0])
+    args, x1q, x2q = _f_case(g, dev, c, skip_hw, coarse_hw, out == "int8")
+    fo = out != "int8"
+    odt = torch.bfloat16 if out == "bf16" else None
+    counter = "launches_qs_bf16" if out == "bf16" else "launches_qs"
+    before = getattr(B, counter)
+    got = B.up_block_qs_cuda(*args, x1q, x2q, fo, odt)
+    assert getattr(B, counter) == before + 1
+    ref = B.up_block_qs_plain(*args, x1q, x2q, fo)
+    if odt is not None:
+        ref = ref.to(odt)
+    assert got.dtype == ref.dtype and torch.equal(got, ref) and bool(ref.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("c", [16, 8], ids=["up2", "up1"])
+@pytest.mark.parametrize("skip_hw,coarse_hw", INT8_TC_SHAPES, ids=INT8_TC_IDS)
+def test_up_block_q_kernel_tensor_core_tiling(dev, skip_hw, coarse_hw, c, dtype):
+    """Kernel H in both I/O modes against the plain version on the inputs
+    widened to float32, its output rounded to the mode's dtype: float32 at
+    TOL (as the first design was), bf16 at chip_smoke.py's BF16_ULP bound (a
+    float32 difference within TOL can flip a bf16 rounding)."""
+    g = torch.Generator().manual_seed(1000 + c + skip_hw[0])
+    p, bn, x1, x2 = _up_case(g, dev, c, c, skip_hw, coarse_hw)
+    x1, x2 = x1.to(dtype), x2.to(dtype)
+    args = B.q_args(p, bn)
+    counter = "launches_q_bf16" if dtype == torch.bfloat16 else "launches_q"
+    before = getattr(B, counter)
+    got = B.up_block_q_cuda(*args, x1, x2)
+    assert getattr(B, counter) == before + 1
+    ref = B.up_block_q_plain(*args, x1.float(), x2.float()).to(dtype)
+    if dtype == torch.bfloat16:
+        _bf16_close(got, ref)
+    else:
+        torch.testing.assert_close(got, ref, **TOL)
+
+
+@pytest.mark.parametrize("c", [16, 8], ids=["up2", "up1"])
+def test_int8_up_kernels_take_misaligned_views(dev, c):
+    """F and H on inputs 8 bytes off 16-byte alignment: F stages them
+    word by word (at 16 bytes a pixel) or by 8-byte pieces, H element by
+    element; the results are those of aligned inputs."""
+    g = torch.Generator().manual_seed(1100 + c)
+    args, x1q, x2q = _f_case(g, dev, c, (37, 19), (18, 9), True)
+    want = B.up_block_qs_cuda(*args, x1q, x2q, False)
+    got = B.up_block_qs_cuda(*args, _off_alignment(x1q), _off_alignment(x2q), False)
+    assert torch.equal(got, want) and torch.equal(got, B.up_block_qs_plain(*args, x1q, x2q, False))
+    p, bn, x1, x2 = _up_case(g, dev, c, c, (37, 19), (18, 9))
+    qa = B.q_args(p, bn)
+    for dt in (torch.float32, torch.bfloat16):
+        a1, a2 = x1.to(dt), x2.to(dt)
+        want = B.up_block_q_cuda(*qa, a1, a2)
+        assert torch.equal(B.up_block_q_cuda(*qa, _off_alignment(a1), _off_alignment(a2)), want)
+
+
+def test_int8_up_wrappers_route_bf16_without_conversion(dev):
+    """The eval's bf16 route: up_block_q passes two bf16 tensors to H's
+    bf16 mode (no float32 mode launch), mixed dtypes to its float32 mode;
+    up_block_qs writes bf16 features from kernel F's bf16 mode."""
+    g = torch.Generator().manual_seed(1200)
+    p, bn, x1, x2 = _up_case(g, dev, 8, 8, (32, 32), (16, 16))
+    n16, n32 = B.launches_q_bf16, B.launches_q
+    out = B.up_block_q(p, bn, x1.to(torch.bfloat16), x2.to(torch.bfloat16))
+    assert out.dtype == torch.bfloat16 and (B.launches_q_bf16, B.launches_q) == (n16 + 1, n32)
+    out = B.up_block_q(p, bn, x1.to(torch.bfloat16), x2)
+    assert out.dtype == torch.float32 and (B.launches_q_bf16, B.launches_q) == (n16 + 1, n32 + 1)
+    s = _amax_scale(x2)
+    x1q, x2q = quant.quantize_static(x1, s), quant.quantize_static(x2, s)
+    n16 = B.launches_qs_bf16
+    feats = B.up_block_qs(p, bn, x1q, x2q, s, s, s, s, None, dtype=torch.bfloat16)
+    assert feats.dtype == torch.bfloat16 and B.launches_qs_bf16 == n16 + 1
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
