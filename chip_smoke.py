@@ -7,7 +7,7 @@ Phases, each printing one JSON line:
   2. build   — compiles every kernel of csrc/ with nvcc (all at once),
                then one build_report line a source: registers, spills
                and shared memory of each kernel (ptxas -v), and the
-               tensor-core MMAs in the SASS of A-D (HMMA) and of F and H
+               tensor-core MMAs in the SASS of A-D (HMMA) and of E-H
                (IMMA, with no __dp4a: IDP.4A), which must be there in
                every instantiation;
   3. kernels — each kernel's wrapper at the main path's shapes (2048^2
@@ -25,10 +25,11 @@ Phases, each printing one JSON line:
                inputs from one member's streams on a seeded 2048^2 input
                (static scales calibrated on it for E and F), plus the
                builder's odd 519^2 blocks (G, H) and a w4a8 case (E); their
-               int8 outputs must equal their plain versions' bit for bit;
-               H again in its bf16 mode and F's up1 with bf16 features,
-               the eval's default; their library time is the plain
-               version with its integer products on torch._int_mm;
+               int8 outputs, and E's and F's float outputs, must equal
+               their plain versions' bit for bit; G and H again in their
+               bf16 modes and F's up1 with bf16 features, the eval's
+               default; their library time is the plain version with its
+               integer products on torch._int_mm;
   4. model   — popcorn_forward on a small input, kernels against the CPU
                plain path, in float32 and in bf16;
   5. main    — the Bag-of-POPCORN eval through the eval CLI: a synthetic
@@ -107,8 +108,8 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 # float kernels A-D are held to the least time at float32 accuracy: three
 # dense TF32 passes a product (the 3xTF32 split, which they run), with
 # the FP32 CUDA-core figure beside it (bound_fp32_ms). The int8 kernels
-# E-H are held to the card's int8 peak, though they run __dp4a on the CUDA
-# cores.
+# E-H, on the int8 tensor cores (mma.sync), are held to the card's dense
+# int8 peak.
 PEAK_FP32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = 3
@@ -123,7 +124,9 @@ DESIGNED_AGAINST = {"double_conv": "tf32x3", "up_block": "tf32x3", "head": "tf32
 TENSOR_CORE_KERNELS = {"double_conv": ("double_conv_kernel", "HMMA"),
                        "up_block": ("up_block_kernel", "HMMA"),
                        "head": ("head_kernel", "HMMA"), "head_bwd": ("head_bwd_kernel", "HMMA"),
+                       "double_conv_qs": ("double_conv_qs_kernel", "IMMA"),
                        "up_block_qs": ("up_block_qs_kernel", "IMMA"),
+                       "double_conv_q": ("double_conv_q_kernel", "IMMA"),
                        "up_block_q": ("up_block_q_kernel", "IMMA")}
 NO_TENSOR_CORE_OPCODE = {"IMMA": "IDP.4A"}
 PEAK_HBM_BYTES = 3.35e12
@@ -142,12 +145,12 @@ QUANT_LAUNCHES = {
               "double_conv_bf16": 6, "up_block_bf16": 4, "head_bf16": 5},
     "w4a8": {"double_conv_qs": 30, "up_block_qs": 10, "up_block_qs_bf16": 10,
              "double_conv_bf16": 6, "up_block_bf16": 4, "head_bf16": 5},
-    # H in its bf16 mode only
-    "int8": {"double_conv_q": 30, "up_block_q_bf16": 20, "double_conv_bf16": 6,
+    # G and H in their bf16 modes only
+    "int8": {"double_conv_q_bf16": 30, "up_block_q_bf16": 20, "double_conv_bf16": 6,
              "up_block_bf16": 4, "head_bf16": 5},
-    "int8+pallas_stream": {"double_conv_q": 36, "up_block_q_bf16": 24, "head_bf16": 5},
-    # the float32 modes on their path, at --compute_dtype float32: H's, and
-    # F's up2 with int8 out and its up1 with float32 features
+    "int8+pallas_stream": {"double_conv_q_bf16": 36, "up_block_q_bf16": 24, "head_bf16": 5},
+    # the float32 modes on their path, at --compute_dtype float32: G's and
+    # H's, and F's up2 with int8 out and its up1 with float32 features
     "int8_float32": {"double_conv_q": 30, "up_block_q": 20, "double_conv": 6, "up_block": 4,
                      "head": 5},
     "int8s_float32": {"double_conv_qs": 30, "up_block_qs": 20, "double_conv": 6,
@@ -527,8 +530,8 @@ def main() -> None:
     secs = cuda_lib.build(force=True)
     emit({"phase": "build", "sources": list(cuda_lib.KERNEL_SOURCES), "seconds": round(secs, 3)})
     # registers, spills and shared memory of every kernel (ptxas -v), and
-    # the tensor-core MMAs in the SASS of A-D, F and H (none of F's and H's
-    # instructions a __dp4a)
+    # the tensor-core MMAs in the SASS of A-H (none of E-H's instructions a
+    # __dp4a)
     for name in cuda_lib.KERNEL_SOURCES:
         rec = {"phase": "build_report", "source": name,
                "ptxas": cuda_lib.ptxas_usage(cuda_lib.build_logs[name])}
@@ -904,7 +907,7 @@ def main() -> None:
         ops, nb = dc_cost(xq, p, 1, 4 if fo else 1)
         check_case("double_conv_qs", f"{name} {shape_name(xq)}", mult,
                    lambda: A.double_conv_qs_cuda(*a, xq, fo), lambda: A.double_conv_qs_plain(*a, xq, fo),
-                   lambda: dc_qs_library(*a, xq, fo), ops, nb, PEAK_INT8_OPS)
+                   lambda: dc_qs_library(*a, xq, fo), ops, nb, PEAK_INT8_OPS, exact=True)
         return A.double_conv_qs_cuda(*a, xq, fo)
 
     def f_case(name, mult, stream, block, x1q, x2q, s_x1, s_x2, s_up, s_y1, s_out, odt=None):
@@ -926,12 +929,19 @@ def main() -> None:
         return B.up_block_qs_cuda(*a, x1q, x2q, fo, odt)
 
     def g_case(name, mult, stream, block, x):
+        """Kernel G in float32, and in its bf16 mode on the same input
+        rounded to bf16, held to the plain version's float32 output
+        rounded to bf16 at BF16_ULP (float32 outputs at RTOL/ATOL)."""
         p, bn = unet[stream][block], unet_bn[stream][block]
         a = A.q_args(p, bn)
-        ops, nb = dc_cost(x, p, 4, 4)
-        check_case("double_conv_q", f"{name} {shape_name(x)}", mult,
-                   lambda: A.double_conv_q_cuda(*a, x), lambda: A.double_conv_q_plain(*a, x),
-                   lambda: dc_q_library(*a, x), ops, nb, PEAK_INT8_OPS)
+        for xm, esz, kernel in ((x, 4, "double_conv_q"), (x.to(bf16), 2, "double_conv_q_bf16")):
+            ops, nb = dc_cost(xm, p, esz, esz)
+            to = (lambda t: t.to(xm.dtype))
+            check_case(kernel, f"{name} {shape_name(xm)}", mult,
+                       lambda: A.double_conv_q_cuda(*a, xm), lambda: to(A.double_conv_q_plain(*a, xm.float())),
+                       lambda: to(dc_q_library(*a, xm.float())), ops, nb, PEAK_INT8_OPS,
+                       ab_parent=((lambda: A.double_conv_q_cuda(*a, xm.float()).to(bf16))
+                                  if esz == 2 else None))
 
     def h_case(name, mult, stream, block, x1, x2):
         """Kernel H in float32, and in its bf16 mode on the same inputs
@@ -960,6 +970,8 @@ def main() -> None:
     qd1 = e_case("down1", 2, "sar", "down1", max_pool_2x2(qx1), s["inc_out"], s["down1_y1"], s["down1_out"])
     e_case("down1_w4a8", 0, "sar", "down1", max_pool_2x2(qx1), s["inc_out"], s["down1_y1"],
            s["down1_out"], wbits=4)
+    # E's float32 output (a stream's last block; not on the eval's path)
+    e_case("down1_float_out", 0, "sar", "down1", max_pool_2x2(qx1), s["inc_out"], s["down1_y1"], None)
     qd2 = e_case("down2", 2, "sar", "down2", max_pool_2x2(qd1), s["down1_out"], s["down2_y1"], s["down2_out"])
     qu2 = f_case("up2", 2, "sar", "up2", qd2, qd1, s["down2_out"], s["down1_out"], s["up2_up"],
                  s["up2_y1"], s["up2_out"])
@@ -1078,8 +1090,8 @@ def main() -> None:
                     "head": (C, "launches"), "head_bf16": (C, "launches_bf16"),
                     "double_conv_qs": (A, "launches_qs"), "up_block_qs": (B, "launches_qs"),
                     "up_block_qs_bf16": (B, "launches_qs_bf16"),
-                    "double_conv_q": (A, "launches_q"), "up_block_q": (B, "launches_q"),
-                    "up_block_q_bf16": (B, "launches_q_bf16")}
+                    "double_conv_q": (A, "launches_q"), "double_conv_q_bf16": (A, "launches_q_bf16"),
+                    "up_block_q": (B, "launches_q"), "up_block_q_bf16": (B, "launches_q_bf16")}
 
         def reset_launches():
             for mod, attr in counters.values():
@@ -1483,15 +1495,15 @@ def main() -> None:
     # each kernel's launches from the run of its own path: A-C in bf16 the
     # main eval at the default dtype, in float32 its float32 run, D
     # training, E and F's bf16 mode the int8s eval, F (int8 out and float32
-    # features) the int8s eval at float32, G and H's bf16 mode the int8
-    # eval, H's float32 mode the int8 eval at float32
+    # features) the int8s eval at float32, G's and H's bf16 modes the int8
+    # eval, their float32 modes the int8 eval at float32
     launches = {**{k: launches[k] for k in MAIN_LAUNCHES},
                 **{k: launches32[k] for k in ("double_conv", "up_block", "head")},
                 "head_bwd": train_launches["head_bwd"],
                 **{k: quant_launches["int8s"][k] for k in ("double_conv_qs", "up_block_qs_bf16")},
                 "up_block_qs": quant_launches["int8s_float32"]["up_block_qs"],
-                **{k: quant_launches["int8"][k] for k in ("double_conv_q", "up_block_q_bf16")},
-                "up_block_q": quant_launches["int8_float32"]["up_block_q"]}
+                **{k: quant_launches["int8"][k] for k in ("double_conv_q_bf16", "up_block_q_bf16")},
+                **{k: quant_launches["int8_float32"][k] for k in ("double_conv_q", "up_block_q")}}
     meta = {
         "double_conv": ("popcorn_tpu_torch/csrc/double_conv.cu", "popcorn_tpu/nn/pallas_conv.py:101"),
         "double_conv_bf16": ("popcorn_tpu_torch/csrc/double_conv.cu",
@@ -1506,6 +1518,8 @@ def main() -> None:
         "up_block_qs_bf16": ("popcorn_tpu_torch/csrc/up_block_qs.cu",
                              "popcorn_tpu/nn/pallas_conv.py:282"),
         "double_conv_q": ("popcorn_tpu_torch/csrc/double_conv_q.cu", "popcorn_tpu/nn/pallas_conv.py:163"),
+        "double_conv_q_bf16": ("popcorn_tpu_torch/csrc/double_conv_q.cu",
+                               "popcorn_tpu/nn/pallas_conv.py:163"),
         "up_block_q": ("popcorn_tpu_torch/csrc/up_block_q.cu", "popcorn_tpu/nn/pallas_conv.py:533"),
         "up_block_q_bf16": ("popcorn_tpu_torch/csrc/up_block_q.cu",
                             "popcorn_tpu/nn/pallas_conv.py:533"),

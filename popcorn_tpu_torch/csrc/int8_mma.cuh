@@ -1,6 +1,7 @@
-// int8_mma.cuh — the int8 implicit-GEMM core of the Up-block kernels F
-// (up_block_qs.cu) and H (up_block_q.cu) on Hopper's int8 tensor cores, and
-// the int8 numerics that every int8 kernel (E-H) shares.
+// int8_mma.cuh — the int8 implicit-GEMM core of the int8 kernels on
+// Hopper's int8 tensor cores: the DoubleConvs E (double_conv_qs.cu) and G
+// (double_conv_q.cu) and the Up blocks F (up_block_qs.cu) and H
+// (up_block_q.cu), and the int8 numerics they share.
 //
 // Products run on mma.sync with s8 operands and s32 accumulators
 // (g = lane / 4, t = lane % 4; a register holds four consecutive k):
@@ -12,17 +13,27 @@
 // the codes equal those of the plain versions' float32 sums, in any order.
 //
 // Tiles ("planes") hold one tensor each, pixel-major, WPP 32-bit words (4
-// int8 channels a word) a pixel, PW pixels a row. A k32 step is two groups
-// of four words; lane t reads word t of a group for its rows g and g+8. A
-// 3x3 conv packs its taps into K as kernel A does (double_conv.cu::kpos):
-// at WPP = 4 a group is one tap (9 groups and a zero-weight pad, 5 k-steps),
-// at WPP = 2 a group is two taps of one row (dx 0, 1; then dx 2 and a zero
-// weight: 6 groups, 3 k-steps). A group's 8 pixels x 4 words then lie in
-// one stretch of a plane row: the 32 lanes hit 32 banks (at WPP = 2 the
-// lanes that share a word read it as one broadcast) without a swizzle.
+// int8 channels a word) a pixel, PW pixels a row. A K-group is four
+// words; lane t reads word t of a group for its rows g and g+8, and a k32
+// step takes two groups. A 3x3 conv packs its taps into K as kernel A does
+// (double_conv.cu::kpos):
+// - WPP = 4 (16 channels): a group is one tap (9 groups and a zero-weight
+//   pad, 5 k-steps);
+// - WPP = 2 (8 channels): a group is two taps of one row (dx 0, 1; then
+//   dx 2 and a zero weight: 6 groups, 3 k-steps);
+// - WPP = 1 (the inc's 2 or 4 input channels, the channels past 2 zero in
+//   the plane and the weights): a group is one kernel row's three taps
+//   and a zero-weight pad that repeats dx 0 (3 groups: one k32 step, then
+//   the odd group on one m16n8k16 step).
+// A group's 8 pixels x 4 words then lie in one stretch of a plane row, at
+// most 8 + 2 pixels long: the 32 lanes hit distinct banks, and lanes
+// that name the same word (neighbouring taps of neighbouring pixels, the
+// pad) read it as one broadcast, without a swizzle. A conv's N is 8
+// output channels an n-tile, one or two n-tiles sharing each A fragment.
 // The weights arrive packed for __dp4a (nn/quant.py::pack_dp4a: words of
 // four input channels, (taps, channel groups, Cout)) and are restaged
-// once a block in fragment order, one 8-byte record a (k-step, lane).
+// once a block in fragment order, one 8-byte record a (n-tile, k-step,
+// lane).
 //
 // Dequantization and requantization round as the plain versions (and XLA
 // in the JAX package) do: a product and a sum, each rounded on its own
@@ -75,11 +86,17 @@ __device__ __forceinline__ void mma_k16(int (&d)[4], uint32_t a0, uint32_t a1, u
       : "r"(a0), "r"(a1), "r"(b0));
 }
 
-// k-steps of a 3x3 conv over a plane of WPP words a pixel
+// K-groups of a 3x3 conv over a plane of WPP words a pixel (pads
+// included), and its k-steps: two groups a m16n8k32 step, and an odd last
+// group alone on m16n8k16
+template <int WPP>
+__host__ __device__ constexpr int kgroups() {
+  static_assert(WPP == 1 || WPP == 2 || WPP == 4, "planes of 4, 8 or 16 channels");
+  return WPP == 4 ? 10 : WPP == 2 ? 6 : 3;
+}
 template <int WPP>
 __host__ __device__ constexpr int ksteps() {
-  static_assert(WPP == 2 || WPP == 4, "planes of 8 or 16 channels");
-  return WPP == 4 ? 5 : 3;
+  return (kgroups<WPP>() + 1) / 2;
 }
 
 // Where lane t's word of K-group grp lies: the tap (dy, dx), the word of
@@ -94,24 +111,28 @@ __device__ __forceinline__ KSlot kslot(int grp, int t) {
   if constexpr (WPP == 4) {  // one tap a group, then a pad group
     const int tap = grp < 9 ? grp : 0;
     return {tap / 3, tap % 3, t, grp < 9};
-  } else {  // taps dx 0, 1 of row grp; then dx 2 and a pad
+  } else if constexpr (WPP == 2) {  // taps dx 0, 1 of row grp; then dx 2 and a pad
     if (grp < 3) return {grp, t >> 1, t & 1, true};
     return {grp - 3, 2, t & 1, (t >> 1) == 0};
+  } else {  // the three taps of row grp and a pad (it repeats dx 0)
+    return {grp < 3 ? grp : 0, t < 3 ? t : 0, 0, grp < 3 && t < 3};
   }
 }
 
-// A 3x3 conv's packed words (9 taps, WPP groups, 8 outputs) in fragment
-// order: record (k-step s, lane) holds the lane's words of groups 2s and
-// 2s+1 for output channel lane / 4
-template <int WPP>
+// A 3x3 conv's packed words (9 taps, WPP groups, COUT outputs) in fragment
+// order: record (n-tile j, k-step s, lane) holds the lane's words of
+// groups 2s and 2s+1 for output channel 8j + lane / 4
+template <int WPP, int COUT = 8>
 __device__ __forceinline__ void stage_conv_weights(uint2* dst, const int* __restrict__ w) {
-  for (int i = threadIdx.x; i < ksteps<WPP>() * 32; i += blockDim.x) {
-    const int lane = i & 31, s = i >> 5, n = lane >> 2, t = lane & 3;
+  constexpr int KS = ksteps<WPP>();
+  for (int i = threadIdx.x; i < COUT / 8 * KS * 32; i += blockDim.x) {
+    const int lane = i & 31, s = (i >> 5) % KS, t = lane & 3;
+    const int n = 8 * ((i >> 5) / KS) + (lane >> 2);
     uint32_t v[2];
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const KSlot p = kslot<WPP>(2 * s + h, t);
-      v[h] = p.valid ? (uint32_t)__ldg(w + ((p.dy * 3 + p.dx) * WPP + p.word) * 8 + n) : 0u;
+      v[h] = p.valid ? (uint32_t)__ldg(w + ((p.dy * 3 + p.dx) * WPP + p.word) * COUT + n) : 0u;
     }
     dst[i] = make_uint2(v[0], v[1]);
   }
@@ -129,14 +150,15 @@ __device__ __forceinline__ void stage_tconv_weights(uint32_t* dst, const int* __
   }
 }
 
-// acc[m] += the 3x3 conv of the plane (WPP words a pixel, PW pixels a row)
-// for NM M tiles whose lane rows g and g+8 have their top-left tap at plane
-// pixels lo[m] and hi[m], with the fragment-order weights wf
-template <int WPP, int PW, int NM>
-__device__ __forceinline__ void conv3x3(int (&acc)[NM][4], const uint32_t* plane,
+// acc[m][j] += the 3x3 conv of the plane (WPP words a pixel, PW pixels a
+// row) for NM M tiles whose lane rows g and g+8 have their top-left tap at
+// plane pixels lo[m] and hi[m], and NT n-tiles (8 output channels each)
+// of the fragment-order weights wf
+template <int WPP, int PW, int NM, int NT>
+__device__ __forceinline__ void conv3x3(int (&acc)[NM][NT][4], const uint32_t* plane,
                                         const int (&lo)[NM], const int (&hi)[NM],
                                         const uint2* wf, int lane) {
-  constexpr int KS = ksteps<WPP>();
+  constexpr int KS = ksteps<WPP>(), NG = kgroups<WPP>();
   const int t = lane & 3;
   int off[2 * KS];
 #pragma unroll
@@ -146,14 +168,23 @@ __device__ __forceinline__ void conv3x3(int (&acc)[NM][4], const uint32_t* plane
   }
 #pragma unroll
   for (int s = 0; s < KS; ++s) {
-    const uint2 b = wf[s * 32 + lane];
+    uint2 b[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) b[j] = wf[(j * KS + s) * 32 + lane];
 #pragma unroll
     for (int m = 0; m < NM; ++m) {
       const uint32_t* pl = plane + lo[m] * WPP;
       const uint32_t* ph = plane + hi[m] * WPP;
-      const uint32_t a[4] = {pl[off[2 * s]], ph[off[2 * s]], pl[off[2 * s + 1]],
-                             ph[off[2 * s + 1]]};
-      mma_k32(acc[m], a, b.x, b.y);
+      if (2 * s + 1 < NG) {
+        const uint32_t a[4] = {pl[off[2 * s]], ph[off[2 * s]], pl[off[2 * s + 1]],
+                               ph[off[2 * s + 1]]};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_k32(acc[m][j], a, b[j].x, b[j].y);
+      } else {  // the odd last group
+        const uint32_t a0 = pl[off[2 * s]], a1 = ph[off[2 * s]];
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_k16(acc[m][j], a0, a1, b[j].x);
+      }
     }
   }
 }
@@ -170,6 +201,16 @@ __device__ __forceinline__ void tconv(int (&acc)[NT][4], const uint32_t* plane, 
   const uint32_t a1 = t < WC ? plane[hi * WC + t] : 0u;
 #pragma unroll
   for (int j = 0; j < NT; ++j) mma_k16(acc[j], a0, a1, wtf[j * 32 + lane]);
+}
+
+// a[k] for a k known only at run time, without indexing into local memory
+template <int N>
+__device__ __forceinline__ float pick(const float (&a)[N], int k) {
+  float v = a[0];
+#pragma unroll
+  for (int i = 1; i < N; ++i)
+    if (i == k) v = a[i];
+  return v;
 }
 
 // four codes as one word, the first in the low byte
@@ -206,17 +247,27 @@ __device__ __forceinline__ float absmax4(float4 v) {
   return fmaxf(fmaxf(fabsf(v.x), fabsf(v.y)), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
 
-// Stage n pixels of PB bytes (a multiple of 4) into shared memory: pixel
-// i from src(i), or zeros where src(i) is null. `vec`: every pixel is
-// aligned to its pieces (16 bytes, or PB below 16), which then arrive by
-// cp.async (the caller commits and waits; `any` is a global address that
-// a zero-filled piece names and does not read); else word by word, from
-// bytes.
+// Stage n pixels of PB bytes (2, or a multiple of 4) into shared memory:
+// pixel i from src(i), or zeros where src(i) is null. `vec`: every pixel
+// is aligned to its pieces (16 bytes, or PB below 16), which then arrive
+// by cp.async (the caller commits and waits; `any` is a global address
+// that a zero-filled piece names and does not read); else word by word,
+// from bytes. A 2-byte pixel (two int8 channels) becomes a word whose
+// upper half is zero, by ordinary loads (cp.async copies 4 bytes at least).
 template <int PB, class SRC>
 __device__ __forceinline__ void stage_pixels(unsigned char* dst, int n, SRC src,
                                              const void* any, bool vec) {
   constexpr int PC = PB < 16 ? PB : 16, NP = PB / PC;
-  if (vec) {
+  if constexpr (PB == 2) {
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const unsigned char* s = src(i);
+      uint32_t v = 0;
+      if (s)
+        v = vec ? (uint32_t)*reinterpret_cast<const uint16_t*>(s)
+                : (uint32_t)s[0] | ((uint32_t)s[1] << 8);
+      reinterpret_cast<uint32_t*>(dst)[i] = v;
+    }
+  } else if (vec) {
     for (int i = threadIdx.x; i < n * NP; i += blockDim.x) {
       const unsigned char* s = src(i / NP);
       cp_async<PC>(dst + i * PC, s ? s + (i % NP) * PC : any, s ? PC : 0);

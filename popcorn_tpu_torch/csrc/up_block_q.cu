@@ -98,16 +98,6 @@ struct QGeom {
   static_assert(RAW2 % 16 == 0 && X1Q % 16 == 0 && RING % 16 == 0, "layout");
 };
 
-// a[k] for a k known only at run time, without indexing into local memory
-template <int N>
-__device__ __forceinline__ float pick(const float (&a)[N], int k) {
-  float v = a[0];
-#pragma unroll
-  for (int i = 1; i < N; ++i)
-    if (i == k) v = a[i];
-  return v;
-}
-
 // does fine pixel 2c + d + off, d in {0, 1}, fall in [lo, hi)?
 __device__ __forceinline__ bool hits(int c, int off, int lo, int hi) {
   const int f = 2 * c + off;
@@ -267,7 +257,7 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 3 : 2)
   const int mt0 = MPW * (warp % (i8::WARPS / Q_NT));
   float upv[MPW][G::NTN][4];
   float mu = 0.f;
-  const float s1k = pick(s1x, kt);
+  const float s1k = i8::pick(s1x, kt);
   auto tconv_phase = [&](auto all_in) {
     const int8_t* cplane = x1q + kt * NC * C1;
 #pragma unroll
@@ -313,7 +303,7 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 3 : 2)
   i8::block_max(su, red_up);
 #pragma unroll
   for (int k = 0; k < Q_NT; ++k) su[k] = fmaxf(su[k], 1e-12f);
-  const float inv_u = __fdiv_rn(127.f, pick(su, kt));
+  const float inv_u = __fdiv_rn(127.f, i8::pick(su, kt));
 #pragma unroll
   for (int k = 0; k < Q_NT; ++k) su[k] = __fdiv_rn(su[k], 127.f);
   // the up codes into the tile's plane: every window pixel is one coarse
@@ -366,15 +356,15 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 3 : 2)
         lo[s] = kk[s] * Q_I * Q_I + (ql / Q_Y) * Q_I + ql % Q_Y;
         hi[s] = kk[s] * Q_I * Q_I + (qh / Q_Y) * Q_I + qh % Q_Y;
       }
-      int acc_a[2][4] = {}, acc_b[2][4] = {};
-      i8::conv3x3<G::WS, Q_I, 2>(acc_a, reinterpret_cast<const uint32_t*>(skip), lo, hi, waf,
+      int acc_a[2][1][4] = {}, acc_b[2][1][4] = {};
+      i8::conv3x3<G::WS, Q_I, 2, 1>(acc_a, reinterpret_cast<const uint32_t*>(skip), lo, hi, waf,
                                  lane);
-      i8::conv3x3<G::WU, Q_I, 2>(acc_b, reinterpret_cast<const uint32_t*>(upq), lo, hi, wbf,
+      i8::conv3x3<G::WU, Q_I, 2, 1>(acc_b, reinterpret_cast<const uint32_t*>(upq), lo, hi, wbf,
                                  lane);
 #pragma unroll
       for (int s = 0; s < 2; ++s) {
         const int mb = warp + i8::WARPS * (i + s), m = mb % MR, k = kk[s];
-        const float ea = pick(s2x, k), eb = pick(su, k);
+        const float ea = i8::pick(s2x, k), eb = i8::pick(su, k);
 #pragma unroll
         for (int hh = 0; hh < 2; ++hh) {
           const int q = 16 * m + g + 8 * hh;
@@ -384,8 +374,8 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 3 : 2)
           for (int e = 0; e < 2; ++e) {
             const int n = 2 * t + e;
             const float v = __fadd_rn(
-                __fadd_rn(__fmul_rn(__int2float_rn(acc_a[s][2 * hh + e]), __fmul_rn(das[n], ea)),
-                          __fmul_rn(__int2float_rn(acc_b[s][2 * hh + e]), __fmul_rn(dbs[n], eb))),
+                __fadd_rn(__fmul_rn(__int2float_rn(acc_a[s][0][2 * hh + e]), __fmul_rn(das[n], ea)),
+                          __fmul_rn(__int2float_rn(acc_b[s][0][2 * hh + e]), __fmul_rn(dbs[n], eb))),
                 t1s[n]);
             const float y = in ? fmaxf(v, 0.f) : 0.f;
             y1v[i + s][2 * hh + e] = y;
@@ -414,7 +404,7 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 3 : 2)
     const int mb = warp + i8::WARPS * i;
     if (mb >= MB) continue;
     const int m = mb % MR, k = mb / MR;
-    const float inv = pick(my, k);
+    const float inv = i8::pick(my, k);
 #pragma unroll
     for (int hh = 0; hh < 2; ++hh) {
       const int q = 16 * m + g + 8 * hh;
@@ -434,19 +424,19 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 3 : 2)
       lo[s] = k * NR + r * Q_Y + g;
       hi[s] = lo[s] + 8;
     }
-    int acc[2][4] = {};
-    i8::conv3x3<2, Q_Y, 2>(acc, reinterpret_cast<const uint32_t*>(ring), lo, hi, w2f, lane);
+    int acc[2][1][4] = {};
+    i8::conv3x3<2, Q_Y, 2, 1>(acc, reinterpret_cast<const uint32_t*>(ring), lo, hi, w2f, lane);
 #pragma unroll
     for (int s = 0; s < 2; ++s) {
       const int k = (m0 + s) / Q_T, r = (m0 + s) % Q_T;
-      const float syk = pick(sy, k);
+      const float syk = i8::pick(sy, k);
 #pragma unroll
       for (int hh = 0; hh < 2; ++hh) {
         const int n = 2 * t, x = Q_T * k + g + 8 * hh;
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e)
-          v[e] = fmaxf(affine(acc[s][2 * hh + e], __fmul_rn(d2s[n + e], syk), t2s[n + e]), 0.f);
+          v[e] = fmaxf(affine(acc[s][0][2 * hh + e], __fmul_rn(d2s[n + e], syk), t2s[n + e]), 0.f);
         store2(ost + (r * (Q_NT * Q_T) + x) * 8 + n, v[0], v[1]);
       }
     }

@@ -210,10 +210,10 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 4 : 3)
         lo[k] = (ql / QS_Y) * QS_I + ql % QS_Y;
         hi[k] = (qh / QS_Y) * QS_I + qh % QS_Y;
       }
-      int acc_a[2][4] = {}, acc_b[2][4] = {};
-      i8::conv3x3<G::WS, QS_I, 2>(acc_a, reinterpret_cast<const uint32_t*>(skip), lo, hi, waf,
+      int acc_a[2][1][4] = {}, acc_b[2][1][4] = {};
+      i8::conv3x3<G::WS, QS_I, 2, 1>(acc_a, reinterpret_cast<const uint32_t*>(skip), lo, hi, waf,
                                   lane);
-      i8::conv3x3<G::WU, QS_I, 2>(acc_b, reinterpret_cast<const uint32_t*>(upq), lo, hi, wbf,
+      i8::conv3x3<G::WU, QS_I, 2, 1>(acc_b, reinterpret_cast<const uint32_t*>(upq), lo, hi, wbf,
                                   lane);
 #pragma unroll
       for (int k = 0; k < 2; ++k) {
@@ -227,8 +227,8 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 4 : 3)
 #pragma unroll
           for (int e = 0; e < 2; ++e) {
             const int n = 2 * t + e;
-            const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc_a[k][2 * hh + e]), eas[n]),
-                                      __fmul_rn(__int2float_rn(acc_b[k][2 * hh + e]), ebs[n]));
+            const float v = __fadd_rn(__fmul_rn(__int2float_rn(acc_a[k][0][2 * hh + e]), eas[n]),
+                                      __fmul_rn(__int2float_rn(acc_b[k][0][2 * hh + e]), ebs[n]));
             c[e] = in ? code(__fadd_rn(v, g1s[n]), 0.f) : (int8_t)0;
           }
           i8::put2(ring + q * 8 + 2 * t, c[0], c[1]);
@@ -247,8 +247,8 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 4 : 3)
     const int ty = m0 / 2;
     const int lo[2] = {ty * QS_Y + g, ty * QS_Y + 16 + g};
     const int hi[2] = {lo[0] + 8, lo[1] + 8};
-    int acc[2][4] = {};
-    i8::conv3x3<2, QS_Y, 2>(acc, reinterpret_cast<const uint32_t*>(ring), lo, hi, w2f, lane);
+    int acc[2][1][4] = {};
+    i8::conv3x3<2, QS_Y, 2, 1>(acc, reinterpret_cast<const uint32_t*>(ring), lo, hi, w2f, lane);
 #pragma unroll
     for (int k = 0; k < 2; ++k) {
 #pragma unroll
@@ -257,7 +257,7 @@ __global__ void __launch_bounds__(i8::THREADS, C1 == 8 ? 4 : 3)
         float v[2];
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
-          v[e] = affine(acc[k][2 * hh + e], e2s[n + e], g2s[n + e]);
+          v[e] = affine(acc[k][0][2 * hh + e], e2s[n + e], g2s[n + e]);
           if constexpr (!std::is_same<OT, int8_t>::value) v[e] = fmaxf(v[e], 0.f);
         }
         i8::put_out(ost + (ty * QS_R + tx) * 8 + n, v[0], v[1]);

@@ -32,9 +32,9 @@ KERNEL_SOURCES = (
     "double_conv", "up_block", "head", "head_bwd",
     "double_conv_qs", "up_block_qs", "double_conv_q", "up_block_q",
 )
-# The edge of the square output tile that one block of kernels E-H
-# owns (csrc/conv_tile.cuh reads it as POPCORN_TILE). The dynamic
-# int8 kernels take one activation scale per tile, so their plain versions
+# The edge of the square tiles over which the dynamic int8 kernels G and H
+# take one activation scale each (csrc/double_conv_q.cu and up_block_q.cu
+# read it as POPCORN_TILE and are built for 16); their plain versions
 # (nn/quant.py) cut the image into the same tiles.
 TILE = 16
 NVCC_FLAGS = (

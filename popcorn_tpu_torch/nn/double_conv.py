@@ -16,14 +16,19 @@ blocks that train.
 Kernel E (csrc/double_conv_qs.cu), static int8 (``quantize`` int8s and
 w4a8): counterpart of ``fused_double_conv_qs`` (``_double_conv_kernel_qs``).
 int8 codes in at the calibrated scale s_x, int8 weights per output channel,
-int32 sums, one requant pass per conv (nn/quant.py::requant), int8 codes
-out at s_out, or float32 with ``s_out=None`` (the stream's last block).
+int32 sums on the int8 tensor cores, one requant pass per conv
+(nn/quant.py::requant), int8 codes out at s_out, or float32 with
+``s_out=None`` (a stream's last block): both equal to the plain version's
+bit for bit.
 
 Kernel G (csrc/double_conv_q.cu), dynamic int8 (``quantize`` int8):
 counterpart of ``fused_double_conv(quantized=True)``
-(``_double_conv_kernel_q``). float32 in and out; the input tile and the y1
-ring each take one scale from their own max-abs, per TILE x TILE output
-tile (nn/quant.py::quantize_tiles).
+(``_double_conv_kernel_q``). The input window and the y1 ring of each
+TILE x TILE output tile take one scale each from their own max-abs
+(nn/quant.py::quantize_tiles); float32 in and out, or bf16 in and out in
+its bf16 mode (a bf16 value widens to float32 exactly, the output is
+rounded to nearest even), which the CLIs' default dtype takes without a
+conversion.
 
 Each public function takes the plain version for a tensor on the CPU and
 launches the CUDA kernel for a tensor on the card; there is no fallback
@@ -54,12 +59,13 @@ from .quant import (
 
 Tree = Dict[str, Any]
 
-# launches of kernels A (float32 and bf16 modes apart), E and G, each
+# launches of kernels A and G (float32 and bf16 modes apart) and E, each
 # counted where its wrapper launches it
 launches = 0
 launches_bf16 = 0
 launches_qs = 0
 launches_q = 0
+launches_q_bf16 = 0
 
 
 def fold_affine(b: torch.Tensor, bn: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -258,12 +264,14 @@ def double_conv_q_plain(w1q, d1, t1, w2q, d2, t2, x: torch.Tensor) -> torch.Tens
 
 
 def double_conv_q_cuda(w1q, d1, t1, w2q, d2, t2, x: torch.Tensor) -> torch.Tensor:
-    """Launch kernel G on a contiguous float32 NHWC CUDA tensor."""
-    global launches_q
+    """Launch kernel G on a contiguous float32 or bfloat16 NHWC CUDA
+    tensor; the output is in x's dtype."""
+    global launches_q, launches_q_bf16
     w1p, w2p = pack_dp4a(w1q), pack_dp4a(w2q)
     i8, f32 = torch.int8, torch.float32
+    io = storage_dtype("double_conv_q", x)
     cuda_lib.require_cuda("double_conv_q", [
-        (x, f32), (w1p, i8), (d1, f32), (t1, f32), (w2p, i8), (d2, f32), (t2, f32)])
+        (x, io), (w1p, i8), (d1, f32), (t1, f32), (w2p, i8), (d2, f32), (t2, f32)])
     b, h, w, cin = x.shape
     cm, cout = w1q.shape[3], w2q.shape[3]
     if w1q.shape != (3, 3, cin, cm) or w2q.shape != (3, 3, cm, cout):
@@ -271,11 +279,11 @@ def double_conv_q_cuda(w1q, d1, t1, w2q, d2, t2, x: torch.Tensor) -> torch.Tenso
             f"double_conv_q: weights {tuple(w1q.shape)}, {tuple(w2q.shape)} do not "
             f"fit input channels {cin}"
         )
-    out = torch.empty((b, h, w, cout), device=x.device, dtype=f32)
+    out = torch.empty((b, h, w, cout), device=x.device, dtype=io)
     if out.numel() == 0:
         return out
     fn = cuda_lib.function(
-        "double_conv_q", "popcorn_double_conv_q",
+        "double_conv_q", f"popcorn_double_conv_q{'_bf16' if io == torch.bfloat16 else ''}",
         [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
     )
     P = cuda_lib.ptr
@@ -284,17 +292,22 @@ def double_conv_q_cuda(w1q, d1, t1, w2q, d2, t2, x: torch.Tensor) -> torch.Tenso
         b, h, w, cin, cm, cout, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(rc, "double_conv_q")
-    launches_q += 1
+    if io == torch.bfloat16:
+        launches_q_bf16 += 1
+    else:
+        launches_q += 1
     return out
 
 
 def double_conv_q(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
-    """Dynamic int8 DoubleConv, out in x's dtype: plain PyTorch on the CPU,
-    kernel G on CUDA. Kernel G reads and writes float32: a bfloat16 input
-    is widened (exactly; the JAX kernel quantizes its bf16 slab from its
-    float32 value too) and the output rounded to bf16, as the JAX kernel
-    writes it in the compute dtype."""
+    """Dynamic int8 DoubleConv, out in x's dtype, the JAX kernel's rounding:
+    x widened (exactly) to float32, the output rounded to x's dtype (the
+    JAX kernel quantizes its bf16 slab from its float32 value and writes
+    the compute dtype). Plain PyTorch on the CPU; on CUDA kernel G, which
+    takes a bfloat16 tensor as it is and rounds its output itself, and
+    any other float widened to float32."""
     args = q_args(p, bn)
-    xf = x.float()
-    out = double_conv_q_plain(*args, xf) if x.device.type == "cpu" else double_conv_q_cuda(*args, xf)
-    return out.to(x.dtype)
+    if x.device.type == "cpu":
+        return double_conv_q_plain(*args, x.float()).to(x.dtype)
+    io = torch.bfloat16 if x.dtype == torch.bfloat16 else torch.float32
+    return double_conv_q_cuda(*args, x.to(io)).to(x.dtype)

@@ -5,10 +5,12 @@ multiple of the head's block, the head backward (kernel D) at pixel
 counts of 1, one tile plus one and ragged shapes, the int8 kernels E-H at
 the same odd sizes (int8 outputs bit-equal to their plain versions), and
 the wrappers' refusals, including of tensors that need a gradient. Kernels
-F and H run on the int8 tensor cores in 32x32 and 16x32 regions: they are
-held at ragged regions, offset pad rings, 519^2 -> 1038^2 and views off
-16-byte alignment, in every output mode (F: int8, float32, bf16; H:
-float32 and bf16 I/O). The
+E-H run on the int8 tensor cores, E and F in 32x32 regions, G and H in
+16x32 (two 16x16 scale tiles): they are held at ragged regions and tiles,
+offset pad rings, the builder's odd 519^2 (-> 1038^2), batch 2 and views
+off the alignment of their loads, in every channel combination and output
+mode (E: int8, float32; F: int8, float32, bf16; G and H: float32 and bf16
+I/O). The
 tensor-core tilings of kernels A (TH x 30 output tiles, TH 14 in float32
 at 16 intermediate channels and 30 otherwise), B (TH x 30, TH 14 at 32
 conv1 channels and 28 at 16) and D (64-pixel tiles on a persistent grid
@@ -410,10 +412,8 @@ def test_double_conv_qs_kernel_odd_batch(dev, cin, cm, cout, float_out):
     got = A.double_conv_qs_cuda(*args, xq, float_out)
     assert A.launches_qs == before + 1
     ref = A.double_conv_qs_plain(*args, xq, float_out)
-    if float_out:
-        torch.testing.assert_close(got, ref, **TOL)
-    else:
-        assert got.dtype == torch.int8 and torch.equal(got, ref) and bool(ref.any())
+    # int8 codes and float32 outputs bit for bit
+    assert got.dtype == ref.dtype and torch.equal(got, ref) and bool(ref.any())
 
 
 @pytest.mark.parametrize("float_out", [False, True], ids=["int8_out", "float_out"])
@@ -588,3 +588,119 @@ def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
     p3, bn3 = _dc_params(g, dev, 3, 8, 8)
     with pytest.raises(ValueError):
         A.double_conv_q(p3, bn3, _n(g, dev, 1, 8, 8, 3))
+
+
+# Kernels E (32x32 output regions) and G (16x32: two 16x16 scale tiles) on
+# the int8 tensor cores, in every channel combination (the inc's one-word
+# pixels on a k32 and a k16 step, 8 and 16 channels): one region exactly,
+# one region plus one pixel both ways (ragged last regions and tiles), a
+# block whose second scale tile is ragged or lies past the image, batch 2
+# at ragged sizes, a single partial region, and the builder's odd 519^2.
+DC_TC_SHAPES = [(1, 32, 32), (1, 33, 33), (1, 16, 40), (1, 16, 16), (2, 37, 61), (1, 3, 5),
+                (1, 519, 519)]
+DC_TC_IDS = ["region", "region_plus_1", "ragged_tile", "tile_past_image", "batch2_ragged",
+             "tiny", "builder_odd"]
+DC_CHANNELS = [(2, 8, 8), (4, 8, 8), (8, 16, 16), (16, 16, 16)]
+DC_CHANNEL_IDS = ["inc_sar", "inc_opt", "down1", "down2"]
+
+
+def _e_case(g, dev, shape, cin, cm, cout, int8_out):
+    p, bn = _dc_params(g, dev, cin, cm, cout)
+    x = _n(g, dev, *shape, cin)
+    s_x, s_y1, s_out = _dc_scales(p, bn, x)
+    return A.qs_args(p, bn, s_x, s_y1, s_out if int8_out else None), quant.quantize_static(x, s_x)
+
+
+@pytest.mark.parametrize("out", ["int8", "float32"])
+@pytest.mark.parametrize("cin,cm,cout", DC_CHANNELS, ids=DC_CHANNEL_IDS)
+@pytest.mark.parametrize("shape", DC_TC_SHAPES, ids=DC_TC_IDS)
+def test_double_conv_qs_kernel_tensor_core_tiling(dev, shape, cin, cm, cout, out):
+    """Kernel E: int8 codes and float32 outputs bit-equal to the plain
+    version's (the integer sums are exact and the epilogue rounds as the
+    plain version does)."""
+    g = torch.Generator().manual_seed(1300 + cin + shape[1])
+    fo = out == "float32"
+    args, xq = _e_case(g, dev, shape, cin, cm, cout, not fo)
+    before = A.launches_qs
+    got = A.double_conv_qs_cuda(*args, xq, fo)
+    assert A.launches_qs == before + 1
+    ref = A.double_conv_qs_plain(*args, xq, fo)
+    assert got.dtype == ref.dtype and torch.equal(got, ref) and bool(ref.any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16], ids=["float32", "bf16"])
+@pytest.mark.parametrize("cin,cm,cout", DC_CHANNELS, ids=DC_CHANNEL_IDS)
+@pytest.mark.parametrize("shape", DC_TC_SHAPES, ids=DC_TC_IDS)
+def test_double_conv_q_kernel_tensor_core_tiling(dev, shape, cin, cm, cout, dtype):
+    """Kernel G in both I/O modes against the plain version on the input
+    widened to float32, its output rounded to the mode's dtype: float32 at
+    TOL, bf16 at chip_smoke.py's BF16_ULP bound (a float32 difference
+    within TOL can flip a bf16 rounding)."""
+    g = torch.Generator().manual_seed(1400 + cin + shape[1])
+    p, bn = _dc_params(g, dev, cin, cm, cout)
+    x = _n(g, dev, *shape, cin).to(dtype)
+    args = A.q_args(p, bn)
+    counter = "launches_q_bf16" if dtype == torch.bfloat16 else "launches_q"
+    before = getattr(A, counter)
+    got = A.double_conv_q_cuda(*args, x)
+    assert getattr(A, counter) == before + 1
+    ref = A.double_conv_q_plain(*args, x.float()).to(dtype)
+    _dc_close(got, ref)
+
+
+def _shifted(t, nbytes):
+    """A contiguous copy of t whose data starts nbytes past a 16-byte
+    boundary (a view into a larger buffer)."""
+    size = t.numel() * t.element_size()
+    buf = torch.empty(size + 16, dtype=torch.uint8, device=t.device)
+    v = buf[nbytes:nbytes + size].view(t.dtype).view(t.shape)
+    v.copy_(t)
+    assert v.data_ptr() % 16 == nbytes and v.is_contiguous()
+    return v
+
+
+@pytest.mark.parametrize("cin,cm,cout", DC_CHANNELS, ids=DC_CHANNEL_IDS)
+def test_int8_double_conv_kernels_take_misaligned_views(dev, cin, cm, cout):
+    """E and G on inputs off the alignment of their pieces: E one byte off
+    (byte loads) and 8 bytes off (word loads at 16 channels, cp.async of
+    smaller pixels), G one element and 8 bytes off in both modes; the
+    results are those of aligned inputs."""
+    g = torch.Generator().manual_seed(1500 + cin)
+    args, xq = _e_case(g, dev, (2, 37, 19), cin, cm, cout, True)
+    want = A.double_conv_qs_cuda(*args, xq, False)
+    assert torch.equal(want, A.double_conv_qs_plain(*args, xq, False))
+    for off in (1, 8):
+        assert torch.equal(A.double_conv_qs_cuda(*args, _shifted(xq, off), False), want)
+    p, bn = _dc_params(g, dev, cin, cm, cout)
+    qa = A.q_args(p, bn)
+    x = _n(g, dev, 2, 37, 19, cin)
+    for dt in (torch.float32, torch.bfloat16):
+        xd = x.to(dt)
+        want = A.double_conv_q_cuda(*qa, xd)
+        for off in (xd.element_size(), 8):
+            assert torch.equal(A.double_conv_q_cuda(*qa, _shifted(xd, off)), want)
+
+
+def test_double_conv_q_wrapper_routes_bf16_without_conversion(dev):
+    """The eval's bf16 route: double_conv_q passes a bf16 tensor to G's
+    bf16 mode (no float32 mode launch, no float32 tensor made), a float32
+    one to its float32 mode."""
+    g = torch.Generator().manual_seed(1600)
+    p, bn = _dc_params(g, dev, 4, 8, 8)
+    x = _n(g, dev, 1, 64, 96, 4)
+    xb = x.to(torch.bfloat16)
+    n16, n32 = A.launches_q_bf16, A.launches_q
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    out = A.double_conv_q(p, bn, xb)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and (A.launches_q_bf16, A.launches_q) == (n16 + 1, n32)
+    # no float32 copy of the input or the output: above what was allocated
+    # before, the call's peak (the bf16 output, the weights' codes and
+    # vectors) stays below the size of a float32 output
+    assert torch.cuda.max_memory_allocated(dev) - base < out.numel() * 4
+    _dc_close(out, A.double_conv_q_plain(*A.q_args(p, bn), x.to(torch.bfloat16).float())
+              .to(torch.bfloat16))
+    out = A.double_conv_q(p, bn, x)
+    assert out.dtype == torch.float32 and (A.launches_q_bf16, A.launches_q) == (n16 + 1, n32 + 1)
