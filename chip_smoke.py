@@ -41,10 +41,17 @@ Phases, each printing one JSON line:
                float32 (the float32 modes, the same counts): the two maps
                correlated >= DTYPE_MAP_CORR, AdjCensus r2 within
                DTYPE_R2_TOL; each with the sliding window's wall split
-               (feed wait, dispatch, finalize); then the bf16 eval with
-               its maps stitched on the host (as above the device-stitch
-               budget), its GeoTIFFs within STITCH_RTOL and census
-               metrics within STITCH_STAT_TOL of the first run's;
+               (feed wait, upload, dispatch, finalize); then the bf16 eval
+               with its maps stitched on the host (as above the
+               device-stitch budget), its GeoTIFFs within STITCH_RTOL and
+               census metrics within STITCH_STAT_TOL of the first run's.
+               These runs take the device-resident season mosaics (the
+               default with a device stitch); the feeds line holds them
+               against the same eval through the host patch feed (the four
+               stitched GeoTIFFs bit-equal), with both timings splits, then
+               --transport bf16 (census r2 within TRANSPORT_R2_BOUND of the
+               exact run) and a run with NaNs in one S1 window (exactly one
+               patch through the host feed);
   6. quant   — the same eval at the default dtype with --quantize int8s,
                w4a8 and int8, then int8 with pallas_stream=True (the
                builder quantized too) through the Evaluator, int8 and
@@ -66,7 +73,11 @@ Phases, each printing one JSON line:
                samples): finite losses, moved head, launches of A and B
                (bf16), C and D (float32, as fused_head), last_model.pth,
                which the eval CLI then turns into finite maps with
-               AdjCensus r2 > 0.9. Then steady step times: the epoch's
+               AdjCensus r2 > 0.9. The CLI must have taken the
+               device-resident training feed; the train_feed line holds its
+               epoch-0 batches, and the season-rotating feed's samples,
+               bit-equal to the host feed's, and gives the cost gate's
+               report from probes on the card. Then steady step times: the epoch's
                batches again through the trainer's step, each shape
                warmed once, and one full-width step at 2x2048^2 in bf16
                and in float32, with its memory; a torch.profiler trace of
@@ -173,6 +184,18 @@ DTYPE_R2_TOL = 1e-3
 # and census metrics of the same maps
 STITCH_RTOL = 1e-5
 STITCH_STAT_TOL = 1e-6
+# main: the device-resident feed against the host feed on the same region.
+# The same tensors reach the same forward in the same order, so the four
+# stitched GeoTIFFs must be bit-equal; the ADJ map and the census metrics
+# divide by segment sums that index_add_ forms with atomic adds on the
+# card, whose order varies from run to run, so they are held at the host
+# stitch's bounds above. --transport bf16 against the exact run: the JAX
+# package's census bound for it (tests/test_transport.py:147).
+TRANSPORT_R2_BOUND = 0.02
+# main: the NaN-hybrid run writes NaNs here into the S1 mosaic of the eval's
+# season: only the first patch's window (rows 0-2047, cols 0-2047) holds
+# this 32-pixel NaN tile, so exactly one patch takes the host feed
+NAN_ROWS, NAN_COLS = slice(2, 6), slice(3, 7)
 # kernel vs plain version: float32 in both with different summation
 # orders (cuDNN/cuBLAS with TF32 off vs 3xTF32 tensor-core sums); observed
 # errors are ~1e-6 relative, so 1e-4 leaves room and still catches any
@@ -1200,21 +1223,76 @@ def main() -> None:
             raise AssertionError(f"bf16 vs float32 eval: map correlation {dtype_corr}, "
                                  f"AdjCensus r2 deltas {dtype_r2}")
 
+        # the feeds: the runs above took the device-resident season mosaics
+        # (the default with a device stitch); the same bf16 eval through the
+        # host patch feed, then with --transport bf16, then with NaNs in one
+        # S1 window (the NaN hybrid: one patch through the host feed)
+        import shutil
+
+        from popcorn_tpu_torch.config import SEASONS, DataPaths
+        from popcorn_tpu_torch.io.geotiff import write_geotiff
+
+        split_hf, split_b16, split_nan = {}, {}, {}
+        stats_hf, wall_hf, _, glob_hf = run_eval("main_host_feed", ("--device_feed", "off"),
+                                                 MAIN_LAUNCHES, timings=split_hf)
+        feed_diff = {}
+        for tag in ("", "STD", "SCALE_rwa", "SCALE_STD", "ADJ_rwa"):
+            a_h, a_d = read_map(glob_hf, tag), read_map(main_glob, tag)
+            feed_diff[tag or "map"] = float(np.abs(a_h - a_d).max() / max(np.abs(a_d).max(), 1e-30))
+        feed_stat_diff = max(abs(stats_hf[k] - stats[k]) for k in stats)
+        stats_b16, wall_b16, _, _ = run_eval("main_transport_bf16", ("--transport", "bf16"),
+                                             MAIN_LAUNCHES, timings=split_b16)
+        b16_deltas = {k: stats_b16[k] - stats[k] for k in stats if k.endswith("/r2")}
+        s1_path = DataPaths(data).modality_path("rwa", "S1", SEASONS[0])
+        backup = os.path.join(tmp, "s1_backup.tif")
+        shutil.copy(s1_path, backup)
+        with GeoTIFF(s1_path) as gt:
+            s1 = gt.read()
+        s1[:, NAN_ROWS, NAN_COLS] = np.nan
+        write_geotiff(s1_path, s1, template=backup)
+        try:
+            stats_nan, wall_nan, _, _ = run_eval("main_nan_hybrid", want=MAIN_LAUNCHES,
+                                                 timings=split_nan)
+        finally:
+            shutil.copy(backup, s1_path)
+        t_dev, t_host, t_nan = split["rwa"], split_hf["rwa"], split_nan["rwa"]
+        emit({
+            "phase": "feeds", "patches": n_patches,
+            "device_feed": {"wall_s": wall, "timings": t_dev},
+            "host_feed": {"wall_s": wall_hf, "timings": t_host, "max_rel_diff": feed_diff,
+                          "census_max_abs_diff": feed_stat_diff},
+            "transport_bf16": {"wall_s": wall_b16, "timings": split_b16["rwa"],
+                               "r2_deltas": b16_deltas, "r2_bound": TRANSPORT_R2_BOUND},
+            "nan_hybrid": {"wall_s": wall_nan, "timings": t_nan,
+                           "adj_coarse_r2": stats_nan["Population_AdjCensus_rwa_coarse/r2"]},
+        })
+        if not (all(feed_diff[k] == 0.0 for k in ("map", "STD", "SCALE_rwa", "SCALE_STD"))
+                and feed_diff["ADJ_rwa"] <= STITCH_RTOL and feed_stat_diff <= STITCH_STAT_TOL):
+            raise AssertionError(f"device feed vs host feed: map differences {feed_diff}, "
+                                 f"census metrics differ by up to {feed_stat_diff}")
+        if t_dev.get("n_device_patches") != n_patches or "n_device_patches" in t_host:
+            raise AssertionError(f"feed choice: device-feed run {t_dev}, host-feed run {t_host}")
+        if max(abs(d) for d in b16_deltas.values()) > TRANSPORT_R2_BOUND:
+            raise AssertionError(f"--transport bf16: census r2 deltas {b16_deltas}")
+        if not (t_nan["n_patches"] == n_patches and t_nan["n_device_patches"] == n_patches - 1):
+            raise AssertionError(f"NaN hybrid: {t_nan}")
+
         # ---------------------------------------------------------------- 6. quant
-        quant_launches = {}
+        quant_launches, split_q, wall_q = {}, {}, {}
         for mode, want in QUANT_LAUNCHES.items():
             if mode == "int8+pallas_stream":
                 # the JAX package has no CLI flag for it: the config through
                 # the Evaluator, which runs run_sliding_inference with it
                 stats_q, q_wall, got_l, folder_glob = run_eval(
-                    f"quant_{mode}", want=want,
+                    f"quant_{mode}", want=want, timings=split_q.setdefault(mode, {}),
                     config=lambda c: dataclasses.replace(c, quantize="int8", pallas_stream=True))
             else:
                 quant, _, cdt = mode.partition("_")
                 extra = (() if mode == "unquantized" else ("--quantize", quant)) + (
                     ("--compute_dtype", cdt) if cdt else ())
-                stats_q, q_wall, got_l, folder_glob = run_eval(f"quant_{mode}", extra, want)
-            quant_launches[mode] = got_l
+                stats_q, q_wall, got_l, folder_glob = run_eval(
+                    f"quant_{mode}", extra, want, timings=split_q.setdefault(mode, {}))
+            quant_launches[mode], wall_q[mode] = got_l, q_wall
             q_r2 = stats_q["Population_AdjCensus_rwa_coarse/r2"]
             deltas = {k: stats_q[k] - stats[k] for k in stats if k.endswith("/r2")}
             q_map = read_map(folder_glob)
@@ -1226,9 +1304,25 @@ def main() -> None:
                 "main_patches_per_s": n_patches / wall, "launches": got_l,
                 "r2_deltas": deltas, "r2_bound": QUANT_R2_BOUND, "map_corr": corr,
                 "map_corr_min": QUANT_MAP_CORR, "adj_coarse_r2": q_r2,
+                "timings": split_q[mode]["rwa"],
             })
             if max(abs(d) for d in deltas.values()) > QUANT_R2_BOUND or not corr >= QUANT_MAP_CORR:
                 raise AssertionError(f"quant {mode}: census r2 deltas {deltas}, map correlation {corr}")
+
+        # the two feeds again, warm: the quant phase's last (unquantized)
+        # eval took the device feed; the host feed once more after it, so
+        # the main phase's first (cold) device-feed run is bracketed
+        split_hl = {}
+        _, wall_hl, _, glob_hl = run_eval("host_feed_last", ("--device_feed", "off"),
+                                          MAIN_LAUNCHES, timings=split_hl)
+        same_hl = all(np.array_equal(read_map(glob_hl, tag), read_map(main_glob, tag))
+                      for tag in ("", "STD", "SCALE_rwa", "SCALE_STD"))
+        emit({"phase": "feeds_steady", "patches": n_patches,
+              "device_feed": {"wall_s": wall_q["unquantized"], "timings": split_q["unquantized"]["rwa"]},
+              "host_feed": {"wall_s": wall_hl, "timings": split_hl["rwa"]},
+              "stitched_maps_equal": same_hl})
+        if not same_hl:
+            raise AssertionError("the last host-feed eval's stitched maps differ from the first's")
 
         # ---------------------------------------------------------- 6. train_step
         from popcorn_tpu_torch.cli import train as train_cli
@@ -1400,10 +1494,82 @@ def main() -> None:
         if not os.path.exists(ck):
             raise AssertionError(f"{ck} was not written")
 
+        # the training feed: the CLI's run took the device-resident feed;
+        # its epoch-0 batches against the host WeaksupFeed's, and the
+        # season-rotating feed's samples against the host feed's (its
+        # batches are grouped by season, so samples are compared, with no
+        # augmentation, as tests/test_torch_device_weaksup.py does), all
+        # fetched to the host and held bit for bit; then the cost gate's
+        # probes on the card
+        from popcorn_tpu_torch.data.device_weaksup import DeviceWeaksupFeed, resident_layout
+        from popcorn_tpu_torch.data.feed import WeaksupFeed
+        from popcorn_tpu_torch.data.feed_select import gate_report, gather_gate_inputs, prefer_rotation
+        from popcorn_tpu_torch.infer.sliding import _upload
+
+        if trainer.feed_choice != "resident":
+            raise AssertionError(f"the train CLI took the {trainer.feed_choice} feed on the card")
+        cpu = torch.device("cpu")
+
+        def fetched(batch):
+            """A batch as the step sees it, on the host: the host feed's
+            arrays through the upload, the device feed's tensors fetched."""
+            out = {}
+            for k, v in batch.items():
+                if isinstance(v, torch.Tensor) or k in ("S2", "S1", "VIIRS", "building_counts",
+                                                        "building_segmentation", "admin_mask"):
+                    out[k] = _upload(batch, cpu, (k,))[k].cpu()
+                else:
+                    out[k] = torch.from_numpy(np.asarray(v))
+            return out
+
+        def same_batch(a, b):
+            a, b = fetched(a), fetched(b)
+            return set(a) == set(b) and all(
+                a[k].dtype == b[k].dtype and a[k].shape == b[k].shape and torch.equal(a[k], b[k])
+                for k in a)
+
+        def timed_epoch(feed):
+            t = time.perf_counter()
+            out = list(feed.epoch(0))
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t
+
+        kw = trainer.feed_kw
+        dev_b, dev_s = timed_epoch(trainer.feed)
+        host_b, host_s = timed_epoch(WeaksupFeed(trainer.train_datasets, **kw))
+        feed_ok = len(dev_b) == len(host_b) > 0 and all(map(same_batch, host_b, dev_b))
+        plain = {**kw, "augment": False, "drop_last": False}
+
+        def samples(batches):
+            out = {}
+            for b in map(fetched, batches):
+                for i in range(len(b["census_idx"])):
+                    out[(float(b["census_idx"][i]), int(b["season"][i]))] = [
+                        b[k][i] for k in ("S2", "S1", "admin_mask", "y")]
+            return out
+
+        rot_feed = DeviceWeaksupFeed(trainer.train_datasets, rotate=True, device=dev, **plain)
+        rot_b, rot_s = timed_epoch(rot_feed)
+        rs, hs = samples(rot_b), samples(list(WeaksupFeed(trainer.train_datasets, **plain).epoch(0)))
+        rot_ok = rs.keys() == hs.keys() and len(hs) > 0 and all(
+            a.dtype == b.dtype and torch.equal(a, b) for k in hs for a, b in zip(hs[k], rs[k]))
+        lay = resident_layout(trainer.train_datasets, kw["bucket_ladder"], kw["transport"])
+        gate = gather_gate_inputs(WeaksupFeed(trainer.train_datasets, **kw),
+                                  n_samples=len(trainer.feed.index),
+                                  swap_bytes=lay["slice_bytes"] * len(lay["seasons"]), device=dev)
+        emit({"phase": "train_feed", "feed": trainer.feed_choice, "batches": len(dev_b),
+              "parity": feed_ok, "epoch_s": dev_s, "host_epoch_s": host_s,
+              "rotating": {"samples": len(rs), "parity": rot_ok, "epoch_s": rot_s},
+              "resident_bytes": lay["need_full"], "gate_report": gate_report(gate),
+              "gate_prefers_rotation": prefer_rotation(gate),
+              "link_bytes_per_s": gate.link_bytes_per_s, "host_items_per_s": gate.host_items_per_s})
+        if not (feed_ok and rot_ok):
+            raise AssertionError(f"training feed parity: resident {feed_ok}, rotating {rot_ok}")
+        del dev_b, host_b, rot_b, rot_feed, rs, hs
+
         # steady step times on the epoch's own batches: the feed is seeded,
         # so epoch 0 yields them again; a plain loop over the trainer's
         # step, each bucket shape run once untimed, then STEP_REPS times
-        from popcorn_tpu_torch.infer.sliding import _upload
         from popcorn_tpu_torch.train.trainer import TRAIN_KEYS
 
         epoch = [(b, trainer._tier_flags(b)) for b in trainer.feed.epoch(0)]

@@ -11,6 +11,10 @@ import argparse
 from ..config import EvalConfig, ModelConfig, TrainConfig
 
 
+TRANSPORT_HELP = ("data-plane dtype of the float image modalities: bf16 halves "
+                  "S1's upload bytes and residency (lossy, census r2 within 0.02)")
+
+
 def _add_common(p: argparse.ArgumentParser):
     p.add_argument("--data_root", type=str, default=None,
                    help="PopMapData root (default: $POPCORN_DATA)")
@@ -90,8 +94,9 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--in_memory", action="store_true",
                    help="preload mosaics into RAM (reference arguments/eval.py:26)")
     p.add_argument("--device_feed", choices=("auto", "on", "off"), default="auto",
-                   help="auto/off: the host feed; on raises (the device-resident "
-                        "mosaic feed is ROADMAP.md Queue 1 item 12)")
+                   help="device-resident season mosaics: auto takes them when the "
+                        "stitch is on the device, on forces them, off takes the "
+                        "host patch feed")
     p.add_argument("--patchsize", type=int, default=2048,
                    help="sliding-window patch size (reference "
                         "inference_patch_size=2048, utils/constants.py:12)")
@@ -107,7 +112,7 @@ def eval_parser() -> argparse.ArgumentParser:
     p.add_argument("--spatial", action="store_true",
                    help="raises: not ported yet (ROADMAP.md Queue 1 item 17)")
     p.add_argument("--transport", choices=("exact", "bf16"), default="exact",
-                   help="bf16 raises: not ported yet (ROADMAP.md Queue 1 item 13)")
+                   help=TRANSPORT_HELP)
     return p
 
 
@@ -167,18 +172,20 @@ def train_parser() -> argparse.ArgumentParser:
     p.add_argument("-mwp", "--max_weak_pix", type=int, default=10_000_000)
     p.add_argument("-mpb", "--max_pix_box", type=int, default=12_000_000)
     p.add_argument("--device_feed", choices=("auto", "on", "off"), default="auto",
-                   help="auto/off: the host feed; on raises (the device-resident "
-                        "feed is ROADMAP.md Queue 1 item 13)")
+                   help="device-resident training feed: auto tries it, then the "
+                        "season-rotating form behind the cost gate, then the host "
+                        "feed; on requires it; off takes the host feed")
     p.add_argument("--quantize_eval", choices=["int8", "int8s", "w4a8"], default=None,
                    help="run the in-training target test and weak validation "
                         "through quantized inference (as eval --quantize); the "
                         "train steps stay float. Explicit opt-in: quantized "
                         "validation steers best-model selection")
     p.add_argument("--feed_gate", choices=("auto", "off", "host"), default="auto",
-                   help="auto/host: the host feed; off (keep the season-rotating "
-                        "feed) raises (ROADMAP.md Queue 1 item 13)")
+                   help="when the full resident stack does not fit: auto measures "
+                        "the season-rotating feed against the host feed, host "
+                        "takes the host feed, off keeps rotation whenever it fits")
     p.add_argument("--transport", choices=("exact", "bf16"), default="exact",
-                   help="bf16 raises: not ported yet (ROADMAP.md Queue 1 item 13)")
+                   help=TRANSPORT_HELP)
     return p
 
 
@@ -202,9 +209,7 @@ def check_eval_args(a) -> None:
              (a.data_parallel > 1, "--data_parallel > 1", 16),
              (a.ensemble_parallel > 1, "--ensemble_parallel > 1", 16),
              (a.multihost, "--multihost", 16),
-             (a.device_feed == "on", "--device_feed on", 12),
-             (a.spatial, "--spatial", 17),
-             (a.transport != "exact", f"--transport {a.transport}", 13)])
+             (a.spatial, "--spatial", 17)])
 
 
 def model_config_from_args(a) -> ModelConfig:
@@ -303,5 +308,7 @@ def eval_config_from_args(a) -> EvalConfig:
         in_memory=a.in_memory,
         patchsize=a.patchsize,
         overlap=a.patch_overlap,
+        device_feed=a.device_feed,
+        transport=a.transport,
         debug_nans=a.debug_nans,
     )

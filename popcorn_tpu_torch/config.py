@@ -308,9 +308,9 @@ class TrainConfig:
     """Training hyperparameters (reference: arguments/train.py:8-61).
 
     The fields of the JAX package's TrainConfig, with its defaults. The
-    multi-device and device-resident options are kept so that a config
-    carries across, but the port does not run them yet: ``check()`` raises
-    for them, naming the ROADMAP item that ports them."""
+    multi-device options are kept so that a config carries across, but the
+    port does not run them yet: ``check()`` raises for them, naming the
+    ROADMAP item that ports them."""
 
     target_regions: Tuple[str, ...] = ("rwa",)
     target_regions_train: Tuple[str, ...] = ("rwa",)
@@ -352,12 +352,15 @@ class TrainConfig:
     multihost: bool = False  # not ported: ROADMAP Queue 1 item 16
     val_in_memory: bool = False  # preload validation rasters into host RAM
     watch_every: int = 0  # >0: log per-layer grad norms + param histograms
-    device_feed: str = "auto"  # "on" not ported: ROADMAP Queue 1 item 13
+    device_feed: str = "auto"  # 'auto' | 'on' | 'off': the device-resident
+    # training feed (data/device_weaksup.py), see train/trainer.py
     spatial_train: bool = False  # not ported: ROADMAP Queue 1 item 17
     grad_accum: int = 1  # microbatches per optimizer update
-    transport: str = "exact"  # "bf16" not ported: ROADMAP Queue 1 item 13
-    feed_gate: str = "auto"  # "off" (keep the rotating feed) not ported:
-    # ROADMAP Queue 1 item 13
+    transport: str = "exact"  # data-plane dtype of the float image
+    # modalities ('exact' | 'bf16', data/feed.py::transport_cast)
+    feed_gate: str = "auto"  # rotation-vs-host cost gate: 'auto' measures,
+    # 'host' forces the host feed, 'off' keeps the rotating feed whenever
+    # it fits (data/feed_select.py)
 
     def check(self) -> None:
         """Raise for options whose feature the port does not run yet."""
@@ -365,9 +368,6 @@ class TrainConfig:
             (self.data_parallel > 1, f"data_parallel={self.data_parallel}", 16),
             (self.multihost, "multihost", 16),
             (self.spatial_train, "spatial_train", 17),
-            (self.device_feed == "on", "device_feed='on'", 13),
-            (self.transport != "exact", f"transport={self.transport!r}", 13),
-            (self.feed_gate == "off", "feed_gate='off'", 13),
         ]
         for bad, what, item in todo:
             if bad:
@@ -389,8 +389,12 @@ class EvalConfig:
     num_workers: int = 8
     patch_batch: int = 1  # patches per forward during sliding-window eval
     in_memory: bool = False  # preload mosaics into host RAM
+    device_feed: str = "auto"  # device-resident mosaic feed (infer/device_feed)
     patchsize: int = 2048  # reference inference_patch_size (constants.py:12)
     overlap: int = 128  # reference overlap (constants.py:13)
+    transport: str = "exact"  # data-plane dtype for float image modalities
+    # ('exact' | 'bf16'): bf16 halves S1 upload bytes and residency; opt-in
+    # and lossy — see data/feed.py::transport_cast
     debug_nans: bool = False  # raise at the first patch whose member
     # outputs hold a NaN (infer/sliding.py::run_sliding_inference)
 

@@ -27,6 +27,7 @@ from concurrent.futures import ThreadPoolExecutor
 from typing import Callable, Dict, Iterable, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from ..aug.augment import apply_geometric, draw_general, draw_photometric
 from .dataset import PopulationDataset
@@ -116,6 +117,41 @@ def pad_item_to(
 TRANSPORT_KEYS = ("S2", "S1", "VIIRS")
 
 
+def bf16_bits(a: np.ndarray) -> np.ndarray:
+    """float32 -> the bit patterns of bfloat16, as np.uint16: rounded to
+    nearest even, and a NaN kept as the quiet NaN of its sign (0x7FC0 or
+    0xFFC0), as the ``ml_dtypes`` cast of the JAX package rounds."""
+    a = np.ascontiguousarray(a, np.float32)
+    b = a.view(np.uint32)
+    # uint32 wraps only for NaN patterns, which are replaced below
+    out = ((b + np.uint32(0x7FFF) + ((b >> 16) & np.uint32(1))) >> 16).astype(np.uint16)
+    nan = np.isnan(a)
+    if nan.any():
+        out[nan] = ((b[nan] >> 16) & 0x8000).astype(np.uint16) | np.uint16(0x7FC0)
+    return out
+
+
+def to_bfloat16(a: np.ndarray) -> torch.Tensor:
+    """A float32 array as a CPU torch.bfloat16 tensor (``bf16_bits``)."""
+    return torch.from_numpy(bf16_bits(a).view(np.int16)).view(torch.bfloat16)
+
+
+def host_tensor(a) -> torch.Tensor:
+    """A host array as the CPU tensor that is uploaded: a uint16 array
+    (lossless S2) as its int16 bit view, since torch's uint16 support on
+    CUDA is partial (``widen_u16`` restores the values on the device); a
+    tensor (bf16 transport) as it is."""
+    if isinstance(a, torch.Tensor):
+        return a
+    a = np.ascontiguousarray(a)
+    return torch.from_numpy(a.view(np.int16) if a.dtype == np.uint16 else a)
+
+
+def widen_u16(t: torch.Tensor) -> torch.Tensor:
+    """The int16 bit view of uint16 values -> their int32 values."""
+    return t.to(torch.int32).bitwise_and_(0xFFFF)
+
+
 def transport_cast(batch: Dict, transport: str) -> Dict:
     """Apply the data-plane ``transport`` rule to an assembled batch/dict.
 
@@ -123,18 +159,17 @@ def transport_cast(batch: Dict, transport: str) -> Dict:
     lossless-uint16 S2 rule) — bit-parity with the reference's data
     plane. "bf16": float32 image modalities ship as bfloat16 — HALF the
     host->device bytes and device residency for S1 (S2 already rides 2-byte
-    uint16 when lossless). Opt-in and lossy (~3 significant digits on
+    uint16 when lossless), held on the host as CPU torch.bfloat16 tensors
+    (``to_bfloat16``). Opt-in and lossy (~3 significant digits on
     raw sensor values, BEFORE normalization); census-level accuracy is
     pinned by tests/test_transport.py. Geometric augmentations are index
     permutations, so they commute with the cast and host/device feed
     parity is preserved per mode."""
     if transport == "bf16":
-        import ml_dtypes
-
         for key in TRANSPORT_KEYS:
             a = batch.get(key)
-            if a is not None and a.dtype == np.float32:
-                batch[key] = a.astype(ml_dtypes.bfloat16)
+            if isinstance(a, np.ndarray) and a.dtype == np.float32:
+                batch[key] = to_bfloat16(a)
     elif transport != "exact":
         raise ValueError(f"unknown transport {transport!r}")
     return batch
@@ -241,8 +276,8 @@ class WeaksupFeed:
             batch["photometric"] = np.asarray([0.0, 1.0, 0.0, 1.0], np.float32)
         return transport_cast(batch, self.transport)
 
-    # hooks for feeds that override the item fetch and the (h, w) used
-    # for bucket grouping
+    # hooks overridden by DeviceWeaksupFeed (data/device_weaksup.py): item
+    # fetch and the (h, w) used for bucket grouping
     def _fetch_item(self, j: int, epoch: int) -> Optional[Dict]:
         d, i = self.index[j]
         try:

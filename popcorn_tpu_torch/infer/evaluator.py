@@ -155,7 +155,8 @@ class Evaluator:
                 self.members, self.consts, self.mcfg, ds,
                 stats=self.stats, batch_size=self.ecfg.patch_batch,
                 progress=True, num_workers=self.ecfg.num_workers,
-                device=self.device, return_device=True,
+                device=self.device, device_feed=self.ecfg.device_feed,
+                transport=self.ecfg.transport, return_device=True,
                 timings=None if timings is None else timings.setdefault(ds.region, {}),
                 debug_nans=self.ecfg.debug_nans,
             )

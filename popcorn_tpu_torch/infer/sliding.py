@@ -1,7 +1,9 @@
 """Country-scale sliding-window inference with ensemble stitching.
 
-Counterpart of popcorn_tpu/infer/sliding.py (reference run_eval.py:71-203),
-host-feed path:
+Counterpart of popcorn_tpu/infer/sliding.py (reference run_eval.py:71-203).
+Patches come from the device-resident season mosaics
+(``_run_device_feed_pass``, infer/device_feed.py) where the stitch is on
+the device, else from the host InferenceFeed:
 
   * per patch, ``prep`` normalizes the input and computes the frozen
     building score ONCE (the reference recomputes it inside every member);
@@ -35,7 +37,7 @@ import torch
 
 from ..config import ModelConfig
 from ..data.dataset import PopulationDataset
-from ..data.feed import InferenceFeed
+from ..data.feed import InferenceFeed, host_tensor, widen_u16
 from ..data.normalize import NormStats, normalize_and_assemble
 from ..nn.popcorn import (
     builder_quantized,
@@ -155,6 +157,15 @@ def make_patch_forward(mcfg: ModelConfig, consts: Tree, stats: NormStats, n_memb
         x, score = prep({k: batch[k] for k in _PREP_KEYS if k in batch})
         return members(member_params, x, score, batch["mask"], batch["valid"])
 
+    @torch.no_grad()
+    def calibrate(member_params, batch):
+        """Calibrate the static int8 scales on ``batch`` before the fold
+        sees another patch first (a no-op otherwise)."""
+        if static_q and "scales" not in calibrated:
+            member_scales(member_params, prep({k: batch[k] for k in _PREP_KEYS if k in batch})[0])
+
+    fn.static_int8 = static_q
+    fn.calibrate = calibrate
     return fn
 
 
@@ -203,25 +214,30 @@ class StitchAccumulators:
 
 
 def _upload(
-    batch: Dict[str, np.ndarray], device: torch.device,
+    batch: Dict[str, Any], device: torch.device,
     keys: Sequence[str] = ("S2", "S1", "VIIRS", "building_counts", "mask", "valid"),
 ) -> Dict[str, torch.Tensor]:
     """Host batch -> device tensors of ``keys`` (pinned and asynchronous
-    on CUDA).
+    on CUDA). Tensors already on ``device`` (the device-resident feeds'
+    batches) pass through untouched.
 
     uint16 arrays (lossless S2) travel as their 2 bytes, reinterpreted as
     int16, and widen to int32 on the device: torch's uint16 support is
-    partial on CUDA."""
+    partial on CUDA. bf16-transport values (CPU torch.bfloat16 tensors)
+    travel as they are."""
     out = {}
     for k in keys:
         if k not in batch:
             continue
-        a = np.ascontiguousarray(batch[k])
-        u16 = a.dtype == np.uint16
-        t = torch.from_numpy(a.view(np.int16) if u16 else a)
+        a = batch[k]
+        if isinstance(a, torch.Tensor) and a.device.type == device.type:
+            out[k] = a
+            continue
+        u16 = isinstance(a, np.ndarray) and a.dtype == np.uint16
+        t = host_tensor(a)
         if device.type == "cuda":
             t = t.pin_memory().to(device, non_blocking=True)
-        out[k] = t.to(torch.int32).bitwise_and_(0xFFFF) if u16 else t
+        out[k] = widen_u16(t) if u16 else t
     return out
 
 
@@ -237,6 +253,179 @@ def stitch_on_host(device_stitch: str, shape: Tuple[int, int]) -> bool:
     )
 
 
+def _run_device_feed_pass(
+    dataset: PopulationDataset,
+    fwd,
+    member_params,
+    acc: StitchAccumulators,
+    dev: torch.device,
+    *,
+    timings: Optional[Dict[str, float]],
+    progress: bool,
+    transport: str,
+    debug_nans: bool,
+):
+    """Run the sliding window from device-resident season mosaics
+    (popcorn_tpu/infer/sliding.py::_run_device_feed_pass), patches in the
+    host feed's order, one a forward (the host feed's batch of 1).
+
+    Returns (remaining, n_seen): the sorted indices into
+    dataset.patch_indices that still need the host feed (patches whose
+    window overlaps a NaN tile take the reference's per-patch healing,
+    PopulationDataset.py:418-441, a host-side repair), and the number of
+    patches visited here.
+
+    Three stages a season: host assembly of season s+1 (season_arrays; on
+    a thread when the host has more than two cores, else inline while the
+    upload runs), the upload of season s (one worker, pinned memory, on a
+    side CUDA stream), and the compute on the main stream, which waits for
+    the upload's event before its first crop. ``timings``: 'feed_wait_s'
+    and 'upload_s' count only the main thread's blocked time; 'read_span_s'
+    and 'upload_span_s' are the stages' own spans, wherever they ran;
+    'warmup_s' is the first patch's wall, drained; 'dispatch_s' the rest
+    of the crop/forward/stitch issue; 'n_device_patches' the patches
+    cropped on the device.
+    """
+    import os
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+
+    from ..data.dataset import validity_mask
+    from ..data.device_weaksup import _window_has_nan
+    from .device_feed import make_device_crop, season_arrays
+
+    p = dataset.patchsize
+    coords = np.asarray(dataset.patch_indices)
+    order = list(dict.fromkeys(int(s) for s in coords[:, 2]))
+    by_season = {s: np.nonzero(coords[:, 2] == s)[0] for s in order}
+    crop = make_device_crop(p)
+    mask = torch.from_numpy(validity_mask(p, p, dataset.overlap)[None]).to(dev)
+    valid = torch.ones((1,), dtype=torch.bool, device=dev)
+    cuda = dev.type == "cuda"
+    side = torch.cuda.Stream(dev) if cuda else None
+    main = torch.cuda.current_stream(dev) if cuda else None
+    overlap = (os.cpu_count() or 1) > 2
+    t = timings if timings is not None else {}
+    for k in ("feed_wait_s", "upload_s", "dispatch_s", "read_span_s", "upload_span_s", "warmup_s"):
+        t.setdefault(k, 0.0)
+    t.setdefault("n_device_patches", 0)
+
+    holder: Dict = {}
+
+    def assemble(s):
+        t0 = time.perf_counter()
+        holder[s] = season_arrays(dataset, s, transport=transport)
+        holder[f"t{s}"] = time.perf_counter() - t0
+
+    def upload(mos_host):
+        t0 = time.perf_counter()
+        if not cuda:
+            return {k: host_tensor(a) for k, a in mos_host.items()}, None, time.perf_counter() - t0
+        with torch.cuda.stream(side):
+            mos = {k: host_tensor(a).pin_memory().to(dev, non_blocking=True)
+                   for k, a in mos_host.items()}
+            done = torch.cuda.Event()
+            done.record(side)
+        done.synchronize()
+        return mos, done, time.perf_counter() - t0
+
+    bar = None
+    if progress:
+        from tqdm import tqdm
+
+        bar = tqdm(total=len(coords), leave=False, desc="device-feed")
+    remaining: list = []
+    n_seen = 0
+    first_visit = True
+    pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="season-upload")
+    try:
+        assemble(order[0])
+        for si, s in enumerate(order):
+            if s not in holder:
+                # pipeline bubble: this season's assembly did not finish
+                # ahead of time (its thread failed, or serial mode)
+                assemble(s)
+            mos_host, nan_q = holder.pop(s)
+            t_asm = holder.pop(f"t{s}")
+            t["read_span_s"] += t_asm
+            if si == 0 or not overlap:
+                t["feed_wait_s"] += t_asm
+            idxs = [int(i) for i in by_season[s]]
+            if nan_q:
+                # tile-level hybrid: only patches whose window overlaps a
+                # NaN tile need the host feed's healing; filter BEFORE the
+                # upload so a season with no clean patch never uploads
+                clean = []
+                for i in idxs:
+                    x, y = int(coords[i][0]), int(coords[i][1])
+                    if any(_window_has_nan(q, x, y, p, p) for q in nan_q.values()):
+                        remaining.append(i)
+                        if bar is not None:
+                            bar.update(1)
+                    else:
+                        clean.append(i)
+                idxs = clean
+            if si == 0 and remaining and remaining[0] == 0 and fwd.static_int8:
+                # the host feed's first patch calibrates static int8: heal
+                # and calibrate on it here too, before any device crop
+                first = next(iter(InferenceFeed(dataset, indices=[0], prefetch=0,
+                                                transport=transport)))
+                fwd.calibrate(member_params, _upload(first, dev))
+            fut = pool.submit(upload, mos_host) if idxs else None
+            del mos_host
+            th = None
+            if si + 1 < len(order):
+                if overlap:
+                    th = threading.Thread(target=assemble, args=(order[si + 1],))
+                    th.start()
+                else:
+                    assemble(order[si + 1])
+            if fut is not None:
+                t0 = time.perf_counter()
+                mos, done, t_up = fut.result()
+                if cuda:
+                    main.wait_event(done)
+                    for v in mos.values():
+                        # allocated on the side stream, read on this one
+                        v.record_stream(main)
+                t["upload_s"] += time.perf_counter() - t0
+                t["upload_span_s"] += t_up
+                t0 = time.perf_counter()
+                warm = 0.0
+                for i in idxs:
+                    t_fv = time.perf_counter()
+                    x, y = int(coords[i][0]), int(coords[i][1])
+                    batch = crop(mos, x, y)
+                    batch["mask"] = mask
+                    batch["valid"] = valid
+                    res = fwd(member_params, batch)
+                    if debug_nans and any(bool(torch.isnan(res[k]).any()) for k in ("dense_sum", "scale_sum")):
+                        raise FloatingPointError(
+                            f"NaN in the member outputs of patch {n_seen} (img_coords {x}, {y})"
+                        )
+                    acc.add(x, y, res, 0)
+                    if first_visit:
+                        # drain the first visit and book its whole wall
+                        # (first-call costs and the first run) as warmup
+                        if cuda:
+                            torch.cuda.synchronize(dev)
+                        warm = t["warmup_s"] = time.perf_counter() - t_fv
+                        first_visit = False
+                    n_seen += 1
+                    t["n_device_patches"] += 1
+                    if bar is not None:
+                        bar.update(1)
+                t["dispatch_s"] += time.perf_counter() - t0 - warm
+                del mos
+            if th is not None:
+                th.join()
+    finally:
+        pool.shutdown(wait=True)
+        if bar is not None:
+            bar.close()
+    return sorted(remaining), n_seen
+
+
 def run_sliding_inference(
     members: Sequence[Tree],
     consts: Tree,
@@ -249,6 +438,8 @@ def run_sliding_inference(
     num_workers: int = 1,
     device="cuda",
     device_stitch: str = "auto",
+    device_feed: str = "auto",
+    transport: str = "exact",
     return_device: bool = False,
     timings: Optional[Dict[str, float]] = None,
     debug_nans: bool = False,
@@ -256,13 +447,24 @@ def run_sliding_inference(
     """Full-region ensemble inference -> stitched mean/std maps.
 
     members/consts: parameter trees of torch tensors (moved to ``device``).
-    Patches come from the host InferenceFeed; each batch is uploaded one
-    batch ahead of the forward that uses it.
 
     device_stitch: "auto" keeps the five accumulators on the device while
     they fit _DEVICE_STITCH_BUDGET_BYTES, else stitches on the host;
     "host"/"device" force the mode (popcorn_tpu/infer/sliding.py:934-940).
     The forward runs on ``device`` either way.
+
+    device_feed: "auto" uploads each season's mosaics to the device once
+    and crops the patches there (``_run_device_feed_pass``) whenever the
+    stitch is on the device, the dataset is in test mode and has a patch
+    size; "on" forces it (and raises with a host stitch), "off" takes the
+    host InferenceFeed, whose batches are uploaded one batch ahead of the
+    forward that uses them. Patches that need the reference's NaN healing
+    take the host feed after the device pass. The device feed's batch is
+    1 patch (there is no host round trip to amortise); at batch 1 both
+    feeds give bit-equal maps.
+
+    transport: "exact" or "bf16", the data plane's dtype for the float
+    image modalities (data/feed.py::transport_cast).
 
     return_device: return the finalized maps of a device stitch as device
     tensors (census aggregation runs on them there), else numpy arrays. A
@@ -270,12 +472,14 @@ def run_sliding_inference(
 
     timings: optional dict filled with the wall-clock split of the run, the
     JAX package's keys: 'feed_wait_s' (host blocked obtaining the next
-    patch batch from the feed: raster reads, assembly), 'upload_s' (0: the
-    device-resident feed is not ported), 'dispatch_s' (issuing the forward
-    and stitch work and the host stitch's fetches; device compute is
-    asynchronous behind it), 'finalize_s' (finalize, the fetch of numpy
-    maps, and the device's drain), 'total_s', 'n_patches' (valid patch
-    visits).
+    patch batch or season mosaic: raster reads, assembly), 'upload_s'
+    (host blocked on a season's upload, device feed only), 'dispatch_s'
+    (issuing the forward and stitch work and the host stitch's fetches;
+    device compute is asynchronous behind it), 'finalize_s' (finalize, the
+    fetch of numpy maps, and the device's drain), 'total_s', 'n_patches'
+    (valid patch visits); with the device feed also 'read_span_s',
+    'upload_span_s', 'warmup_s' and 'n_device_patches'
+    (``_run_device_feed_pass``).
 
     debug_nans: raise FloatingPointError at the first patch whose member
     outputs hold a NaN, naming it (what jax_debug_nans stops the JAX
@@ -283,12 +487,23 @@ def run_sliding_inference(
     """
     from ..compat.weights import to_torch
 
+    if device_feed not in ("auto", "on", "off"):
+        raise ValueError(f"device_feed={device_feed!r}: 'auto', 'on' or 'off'")
     dev = resolve_device(device)
+    host = stitch_on_host(device_stitch, dataset.shape())
+    if device_feed == "on" and host:
+        raise ValueError(
+            "device_feed='on' requires device-resident stitch accumulators "
+            "(the region under the device-stitch budget); use device_feed='auto'"
+        )
+    dev_feed = not host and (
+        device_feed == "on"
+        or (device_feed == "auto" and dataset.mode == "test" and bool(dataset.patchsize))
+    )
     stats = stats if stats is not None and stats.device == dev else NormStats(device=dev)
     member_params = [to_torch(p, dev) for p in members]
     consts = to_torch(consts, dev)
     fwd = make_patch_forward(mcfg, consts, stats, len(members))
-    host = stitch_on_host(device_stitch, dataset.shape())
     acc = StitchAccumulators(dataset.shape(), dev, host=host)
 
     if timings is not None:
@@ -296,9 +511,17 @@ def run_sliding_inference(
             timings.setdefault(k, 0.0)
         timings.setdefault("n_patches", 0)
     t_run0 = time.perf_counter()
-    feed_wait = 0.0
 
-    feed = InferenceFeed(dataset, batch_size=batch_size, prefetch=2, num_workers=num_workers)
+    remaining, n_seen = None, 0  # None: every patch through the host feed
+    if dev_feed:
+        remaining, n_seen = _run_device_feed_pass(
+            dataset, fwd, member_params, acc, dev, timings=timings, progress=progress,
+            transport=transport, debug_nans=debug_nans,
+        )
+
+    feed_wait = 0.0
+    feed = InferenceFeed(dataset, batch_size=batch_size, prefetch=2, num_workers=num_workers,
+                         indices=remaining, transport=transport)
     source = feed
     if progress and len(feed):
         from tqdm import tqdm
@@ -315,7 +538,7 @@ def run_sliding_inference(
 
     # one-batch lookahead: the next batch is uploaded before the current
     # one's forward runs
-    n_seen = 0
+    t_loop0 = time.perf_counter()
     cur = next_batch()
     cur_dev = _upload(cur, dev) if cur is not None else None
     while cur is not None:
@@ -344,7 +567,7 @@ def run_sliding_inference(
     if timings is not None:
         t1 = time.perf_counter()
         timings["feed_wait_s"] += feed_wait
-        timings["dispatch_s"] += (t_fin0 - t_run0) - feed_wait
+        timings["dispatch_s"] += (t_fin0 - t_loop0) - feed_wait
         timings["finalize_s"] += t1 - t_fin0
         timings["total_s"] += t1 - t_run0
         timings["n_patches"] += n_seen

@@ -1,13 +1,16 @@
 """The weakly supervised training loop.
 
 Counterpart of popcorn_tpu/train/trainer.py (reference run_train.py:43-476):
-the epoch loop over census-region batches from the host ``WeaksupFeed``,
-memory-tiered gradient freezing, weak validation, the in-training
-sliding-window test, StepLR and ``.pth`` checkpoint/resume. Batches are
-uploaded pinned and asynchronously one batch ahead of the step that uses
-them. Not ported yet: the device-resident feeds (ROADMAP.md Queue 1 item
-13) and the multi-device mesh / spatial training (items 16 and 17);
-``TrainConfig.check`` raises for them.
+the epoch loop over census-region batches, memory-tiered gradient
+freezing, weak validation, the in-training sliding-window test, StepLR and
+``.pth`` checkpoint/resume. The feed chain is the JAX trainer's: the
+device-resident feed (data/device_weaksup.py) when the region's stacks
+fit, else its season-rotating form when the measured cost gate
+(data/feed_select.py) prefers it, else the host ``WeaksupFeed``, whose
+batches are uploaded pinned and asynchronously one batch ahead of the step
+that uses them. Not ported yet: the multi-device mesh / spatial training
+(ROADMAP.md Queue 1 items 16 and 17); ``TrainConfig.check`` raises for
+them.
 """
 
 from __future__ import annotations
@@ -31,7 +34,9 @@ from ..config import (
     find_dda_checkpoint,
 )
 from ..data.dataset import PopulationDataset
+from ..data.device_weaksup import DeviceWeaksupFeed, Ineligible, resident_layout
 from ..data.feed import WeaksupFeed
+from ..data.feed_select import gate_mode, gate_report, gather_gate_inputs, prefer_rotation
 from ..data.normalize import NormStats
 from ..infer.sliding import _upload, resolve_device, run_sliding_inference
 from ..io.geotiff import GeoTIFF
@@ -114,15 +119,36 @@ class Trainer:
             for reg in tcfg.target_regions
         ]
 
-        if tcfg.device_feed == "auto":
-            print("Training feed: host (the device-resident feed is not ported "
-                  "yet, ROADMAP.md Queue 1 item 13)")
-        self.feed = WeaksupFeed(
-            self.train_datasets, batch_size=tcfg.weak_batch_size,
-            bucket_ladder=tcfg.bucket_ladder, seed=tcfg.seed,
-            building_input=mcfg.building_input, segmentation_input=mcfg.segmentation_input,
-            max_samples=tcfg.max_samples, num_workers=tcfg.num_workers,
+        feed_kw = dict(
+            batch_size=tcfg.weak_batch_size, bucket_ladder=tcfg.bucket_ladder,
+            seed=tcfg.seed, building_input=mcfg.building_input,
+            segmentation_input=mcfg.segmentation_input, max_samples=tcfg.max_samples,
+            num_workers=tcfg.num_workers, transport=tcfg.transport,
         )
+        self.feed_kw = feed_kw
+        # the chosen feed ('resident', 'rotating' or 'host') and the cost
+        # gate's report when it ran
+        self.feed, self.feed_choice, self.gate_report = None, "host", None
+        if tcfg.device_feed != "off":
+            # device-resident data plane: mosaics upload once, batch
+            # assembly (crop + mask + geometric augs) runs on the device
+            try:
+                self.feed = DeviceWeaksupFeed(self.train_datasets, device=self.device, **feed_kw)
+                self.feed_choice = "resident"
+                print("Training feed: device-resident mosaics")
+            except Ineligible as e:
+                if tcfg.device_feed == "on":
+                    raise
+                # middle path: regions whose full multi-season stack does
+                # not fit rotate one season's slice at a time
+                try:
+                    self.feed = self._maybe_rotating_feed(feed_kw, e)
+                    self.feed_choice = "rotating"
+                except Ineligible as e2:
+                    print(f"Device training feed unavailable ({e}; rotation: {e2}); "
+                          "using host feed")
+        if self.feed is None:
+            self.feed = WeaksupFeed(self.train_datasets, **feed_kw)
 
         # model ---------------------------------------------------------------
         if mcfg.pretrained and find_dda_checkpoint():
@@ -151,6 +177,36 @@ class Trainer:
 
         if resume is not None:
             self.resume(resume)
+
+    def _maybe_rotating_feed(self, feed_kw, reason) -> DeviceWeaksupFeed:
+        """The season-rotating device feed, or Ineligible when its slice
+        does not fit — or when the MEASURED cost gate says the host feed
+        would finish the epoch faster (rotation's per-epoch slice
+        re-uploads are a fixed cost that only amortizes past enough
+        samples an epoch)."""
+        mode = self.tcfg.feed_gate
+        env = gate_mode()
+        if env != "auto":
+            mode = env  # the environment wins (tests / operators)
+        if mode == "host":
+            raise Ineligible("feed gate forced host (feed_gate=host)")
+        if mode != "off":
+            lay = resident_layout(self.train_datasets, feed_kw["bucket_ladder"],
+                                  feed_kw["transport"])
+            probe = WeaksupFeed(self.train_datasets, **feed_kw)
+            n = len(probe.index)
+            if feed_kw["max_samples"] is not None:
+                n = min(n, feed_kw["max_samples"])
+            g = gather_gate_inputs(probe, n_samples=n,
+                                   swap_bytes=lay["slice_bytes"] * len(lay["seasons"]),
+                                   device=self.device)
+            self.gate_report = gate_report(g)
+            if not prefer_rotation(g):
+                raise Ineligible("cost gate picked host feed: " + self.gate_report)
+            print(f"Feed cost gate: {self.gate_report} -> rotation")
+        feed = DeviceWeaksupFeed(self.train_datasets, rotate=True, device=self.device, **feed_kw)
+        print(f"Training feed: season-rotating device residency (full stack ineligible: {reason})")
+        return feed
 
     # -- persistence ---------------------------------------------------------
 
@@ -320,17 +376,26 @@ class Trainer:
 
     def _val_feed(self, ds) -> WeaksupFeed:
         """One cached validation feed per dataset: building one per call
-        re-reads every raster."""
+        re-reads every raster. With a device-resident training feed it
+        shares that feed's stacks (the same mosaics, another census
+        split) instead of reading every val window on the host."""
         key = id(ds)
         if key not in self._val_feeds:
-            self._val_feeds[key] = WeaksupFeed(
-                [ds], batch_size=self.tcfg.weak_val_batch_size,
+            vkw = dict(
+                batch_size=self.tcfg.weak_val_batch_size,
                 bucket_ladder=self.tcfg.bucket_ladder, seed=self.tcfg.seed,
                 augment=False, drop_last=False,
                 building_input=self.mcfg.building_input,
                 segmentation_input=self.mcfg.segmentation_input,
-                num_workers=self.tcfg.num_workers,
+                num_workers=self.tcfg.num_workers, transport=self.tcfg.transport,
             )
+            feed = None
+            if isinstance(self.feed, DeviceWeaksupFeed):
+                try:
+                    feed = DeviceWeaksupFeed([ds], resident_from=self.feed, **vkw)
+                except Ineligible:
+                    pass
+            self._val_feeds[key] = feed if feed is not None else WeaksupFeed([ds], **vkw)
         return self._val_feeds[key]
 
     def test_target(self, save: bool = False) -> Dict[str, float]:
@@ -343,7 +408,8 @@ class Trainer:
             maps = run_sliding_inference(
                 [self.params], self.consts, self.mcfg, ds, stats=self.stats,
                 batch_size=self.test_patch_batch, num_workers=self.tcfg.num_workers,
-                device=self.device, return_device=True,
+                device=self.device, return_device=True, transport=self.tcfg.transport,
+                device_feed="off" if self.tcfg.device_feed == "off" else "auto",
             )
             # a region above the device-stitch budget comes back stitched
             # on the host, as numpy maps

@@ -61,8 +61,7 @@ def test_every_run_eval_flag_is_taken_or_refused_with_a_reason(argv):
 @pytest.mark.parametrize(
     "argv,item",
     [(["--no_fused_head"], 21), (["--data_parallel", "2"], 16), (["--ensemble_parallel", "2"], 16),
-     (["--multihost"], 16), (["--device_feed", "on"], 12), (["--spatial"], 17),
-     (["--transport", "bf16"], 13)],
+     (["--multihost"], 16), (["--spatial"], 17)],
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
 )
 def test_refused_eval_flags_name_their_roadmap_item(argv, item):
@@ -74,13 +73,33 @@ def test_refused_eval_flags_name_their_roadmap_item(argv, item):
     "argv",
     [["--compile_cache"], ["--compile_cache", "/tmp/xla"], ["--fused_head"], ["--remat"],
      ["--debug_nans"], ["--device_feed", "auto"], ["--device_feed", "off"],
-     ["--data_parallel", "1"], ["--transport", "exact"]],
+     ["--device_feed", "on"], ["--data_parallel", "1"], ["--transport", "exact"],
+     ["--transport", "bf16"]],
     ids=lambda a: " ".join(a),
 )
 def test_accepted_eval_flags(argv):
     args, ecfg = _configs(argv)
     assert ecfg.debug_nans == ("--debug_nans" in argv)
     assert model_config_from_args(args).remat_unet == ("--remat" in argv)
+    # the feed flags reach the EvalConfig the Evaluator passes on
+    if "--device_feed" in argv:
+        assert ecfg.device_feed == argv[-1]
+    if "--transport" in argv:
+        assert ecfg.transport == argv[-1]
+
+
+@pytest.mark.parametrize(
+    "argv,field,value",
+    [(["--device_feed", "on"], "device_feed", "on"), (["--transport", "bf16"], "transport", "bf16"),
+     (["--feed_gate", "off"], "feed_gate", "off")],
+    ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
+)
+def test_train_feed_flags_are_taken(argv, field, value):
+    from popcorn_tpu_torch.cli.args import train_config_from_args
+
+    args = train_parser().parse_args(argv)
+    check_train_args(args)
+    assert getattr(train_config_from_args(args), field) == value
 
 
 def test_no_fused_head_is_refused_in_train_with_its_item():

@@ -1,6 +1,7 @@
 """The port stands alone: every module of popcorn_tpu_torch imports with
-jax and popcorn_tpu made unimportable, and no file of the package (nor
-chip_smoke.py) imports either."""
+jax, ml_dtypes and popcorn_tpu made unimportable, and no file of the
+package (nor chip_smoke.py) imports any of them (the machine with the card
+has none of them)."""
 
 import ast
 import os
@@ -12,7 +13,7 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "popcorn_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "popcorn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "popcorn_tpu")
 
 
 def _sources():
@@ -45,7 +46,7 @@ def test_every_module_imports_without_jax():
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "popcorn_tpu"):
+                if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "popcorn_tpu"):
                     raise ImportError(f"blocked: {name}")
                 return None
 
@@ -55,7 +56,7 @@ def test_every_module_imports_without_jax():
         for m in pkgutil.walk_packages(popcorn_tpu_torch.__path__, "popcorn_tpu_torch."):
             importlib.import_module(m.name)
             n += 1
-        assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "popcorn_tpu")]
+        assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "ml_dtypes", "popcorn_tpu")]
         print(n)
         """
     )

@@ -94,14 +94,22 @@ def test_auto_run_above_the_budget_equals_the_host_stitch(setup, stitched, monke
 
 @pytest.mark.parametrize("mode", ["host", "device"])
 def test_timings_split_the_wall(setup, mode):
+    """A host stitch takes the host feed (no upload time); a device stitch
+    takes the device-resident feed by default, with its stage spans and
+    its first patch booked apart as warmup_s."""
     paths = setup[0]
     timings = {}
     _run(setup, device_stitch=mode, timings=timings)
     keys = {"feed_wait_s", "upload_s", "dispatch_s", "finalize_s", "total_s", "n_patches"}
-    assert set(timings) == keys
+    dev_keys = {"read_span_s", "upload_span_s", "warmup_s", "n_device_patches"}
+    assert set(timings) == (keys | dev_keys if mode == "device" else keys)
     assert all(v >= 0 for v in timings.values()), timings
-    assert timings["upload_s"] == 0.0  # no device-resident feed
     parts = timings["feed_wait_s"] + timings["dispatch_s"] + timings["finalize_s"]
+    if mode == "host":
+        assert timings["upload_s"] == 0.0  # no device-resident feed
+    else:
+        assert timings["upload_s"] > 0.0 and timings["n_device_patches"] == timings["n_patches"]
+        parts += timings["upload_s"] + timings["warmup_s"]
     assert parts <= timings["total_s"] + 1e-6, timings
     n_valid = sum(int(np.sum(b["valid"])) for b in InferenceFeed(_dataset(paths), batch_size=3))
     assert timings["n_patches"] == n_valid > 1
