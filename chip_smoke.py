@@ -82,7 +82,29 @@ Phases, each printing one JSON line:
                warmed once, and one full-width step at 2x2048^2 in bf16
                and in float32, with its memory; a torch.profiler trace of
                each (train_profile lines) splits the step by kernel and
-               gives the device's idle share.
+               gives the device's idle share;
+  9. no_fused_head — the 5-member eval with --no_fused_head at bf16 and
+               at float32: A and B launched as in main and C not at all,
+               each map correlated >= DTYPE_MAP_CORR with main's run of its
+               dtype and census r2 within NO_FUSED_R2_BOUND; then a 2-step
+               train CLI run with the flag: no C, no D, finite losses;
+ 10. timeseries — builtup: the time-series CLI on dated frames made of
+               the region's season mosaics (two dates, both orbits) at its
+               1024/64 patches in float32, with exactly 6 A and 4 B
+               launches a patch call; one frame's orbit map against the
+               plain versions on the CPU (BUILTUP_ATOL), the written map
+               against the orbits' mean, a profiled patch call
+               (timeseries_profile line); population: the CLI over two
+               steps (this region and one from seed 43) with the 5 members
+               at 2048/128 in bf16, each step's maps bit-equal to
+               run_sliding_inference called directly, totals.csv;
+ 11. dda     — DDA extractor training through its CLI on a synthetic
+               manifest of 256^2 tiles (8 labeled + 8 unlabeled a batch,
+               3 epochs): the loss falls; one step on the card against the
+               CPU from the same weights (adam_step_agreement); the
+               exported checkpoint through create_building_score on the
+               card (6 A, 4 B).
+Each of phases 9-11 prints its wall seconds.
 Kernel D (the head backward) is checked in phase 3 at the train phase's
 bucket shape (2x1024x1024) and at 2x2048^2. Then the {"kernels": [...]}
 summary, the nvidia-smi name/power line, and last {"ok": true, "device":
@@ -243,6 +265,28 @@ STEP_BF16_RTOL, STEP_BF16_CORR = 1e-2, 0.999
 # rounding): tests/test_torch_bf16.py's bound against the JAX package's
 # Pallas-route semantics
 MODEL_BF16_CORR = 0.9999
+# no_fused_head: the eval with the head as four 1x1 convs against the
+# fused run of the same dtype: the same products in another order (bf16:
+# rounded after each layer, as in JAX's unfused head), so the maps agree to
+# the dtype's precision; census r2 at the JAX package's bound for an eval
+# that rounds differently (QUANT_R2_BOUND)
+NO_FUSED_R2_BOUND = 0.02
+# timeseries: the builtup map (a probability in [0, 1]) from kernels A and B
+# in float32 (3xTF32 on the tensor cores) against the plain versions on the
+# CPU, max abs
+BUILTUP_ATOL = 1e-4
+# dda: the CLI's learning rate (the JAX package's learning test uses 3e-3;
+# at the default 1e-4 the loss of 3 short epochs need not fall), and the
+# card's step against the CPU's from the same weights: float32 with TF32
+# off on both sides, BatchNorm's backward subtracting batch means of the
+# gradient (a cancellation), so gradients norm-relative 1e-3; updates as
+# the train_step phase holds them, over the elements whose gradients agree
+# in sign and exceed DDA_GRAD_FLOOR (100 Adam eps), the others (at most
+# DDA_HELD_SHARE of them) moved by at most lr on both sides
+DDA_LR = 1e-3
+DDA_GRAD_RTOL = 1e-3
+DDA_GRAD_FLOOR = 1e-6
+DDA_HELD_SHARE = 0.05
 KERNEL_REPS = 10
 # device_ms: the most traces it takes to find one that holds every launch
 TRACE_TRIES = 3
@@ -372,6 +416,45 @@ def profile_steps(case: str, run, step_ms: float, reps: int = 3) -> dict:
         "top_host_ops": [{"name": e.key[:60], "self_ms": e.self_cpu_time_total / 1e3 / reps,
                           "calls": e.count / reps} for e in host[:15]],
     }
+
+
+def adam_step_agreement(ref_params, got_params, before) -> dict:
+    """One Adam step of the same weights on two devices: each leaf's
+    gradient norm-relative, and the updates norm-relative over the elements
+    whose two gradients agree in sign and exceed DDA_GRAD_FLOOR. Adam moves
+    an element by about lr * sign(g), so elsewhere (a rounding-level
+    gradient, or a conv bias before a training-mode BatchNorm, whose
+    gradient is zero in exact arithmetic) the moves may differ by up to 2
+    lr: those elements are counted and their largest move is returned."""
+    import torch
+
+    from popcorn_tpu_torch.train.state import tree_flatten
+
+    grad_rel = upd_rel = held_move = 0.0
+    n_held = n_all = 0
+    worst = None
+    got_leaves = dict(tree_flatten(got_params))
+    for path, ref_p in tree_flatten(ref_params):
+        got_p = got_leaves[path]
+        g_ref, g_got = ref_p.grad.cpu(), got_p.grad.cpu()
+        u_ref = ref_p.detach().cpu() - before[path]
+        u_got = got_p.detach().cpu() - before[path]
+        pre_bn = path[-1] == "b" and path[-2] in ("conv1", "conv2")
+        held = torch.ones_like(g_ref, dtype=torch.bool) if pre_bn else (
+            (torch.sign(g_ref) != torch.sign(g_got)) | (g_ref.abs() <= DDA_GRAD_FLOOR))
+        if bool(held.any()):
+            held_move = max(held_move, float(u_ref[held].abs().max()), float(u_got[held].abs().max()))
+        if pre_bn:
+            continue
+        n_held += int(held.sum())
+        n_all += held.numel()
+        rel = float((g_got - g_ref).norm() / g_ref.norm())
+        if rel > grad_rel:
+            grad_rel, worst = rel, ".".join(path)
+        keep = ~held
+        upd_rel = max(upd_rel, float((u_got[keep] - u_ref[keep]).norm() / u_ref[keep].norm()))
+    return {"grad_max_norm_rel": grad_rel, "grad_worst_leaf": worst, "update_max_norm_rel": upd_rel,
+            "held_elements": n_held, "elements": n_all, "held_max_move": held_move}
 
 
 def compare(got, ref, name: str):
@@ -1655,6 +1738,255 @@ def main() -> None:
         for prof in profiles:
             emit(prof)
         del p
+        torch.cuda.empty_cache()
+
+        # ------------------------------------------------------ 9. no_fused_head
+        # the head as four 1x1 convs (--no_fused_head): the 5-member eval at
+        # bf16 and at float32, each launching A and B as the main phase does
+        # and C not at all, its map held to the fused run of its dtype; then
+        # the train CLI, which launches neither C nor D
+        t_phase = time.perf_counter()
+        no_head = {k: v for k, v in MAIN_LAUNCHES.items() if not k.startswith("head")}
+        nf_runs = {}
+        for cdt, ref_glob, ref_stats, want in (
+                ("bfloat16", main_glob, stats, no_head),
+                ("float32", glob32, stats32, {k.replace("_bf16", ""): v for k, v in no_head.items()})):
+            extra = ("--no_fused_head",) + (("--compute_dtype", cdt) if cdt == "float32" else ())
+            split_nf = {}
+            st_nf, wall_nf, got_l, glob_nf = run_eval(f"no_fused_head_{cdt}", extra, want,
+                                                      timings=split_nf)
+            corr = float(np.corrcoef(read_map(ref_glob).ravel(), read_map(glob_nf).ravel())[0, 1])
+            deltas = {k: st_nf[k] - ref_stats[k] for k in ref_stats if k.endswith("/r2")}
+            nf_runs[cdt] = {"wall_s": wall_nf, "launches": got_l, "map_corr": corr,
+                            "r2_deltas": deltas, "timings": split_nf["rwa"]}
+            if not corr >= DTYPE_MAP_CORR or max(abs(d) for d in deltas.values()) > NO_FUSED_R2_BOUND:
+                raise AssertionError(f"--no_fused_head at {cdt}: map correlation {corr}, "
+                                     f"census r2 deltas {deltas}")
+        # one member's head at a 2048^2 patch: kernel C against the four
+        # 1x1 convs, in each dtype (CUDA events, KERNEL_REPS calls)
+        nf_head = {}
+        feats = torch.randn((1, P, P, 16), device=dev)
+        head_p = to_torch(init_head(0, biasinit=0.9407), dev)
+        with torch.no_grad():
+            for cdt, tdt in (("bfloat16", torch.bfloat16), ("float32", None)):
+                fx = feats.to(tdt) if tdt is not None else feats
+                nf_head[cdt] = {"kernel_c_ms": time_ms(lambda: C.head_apply(head_p, fx, n_out=1)),
+                                "unfused_ms": time_ms(lambda: C.head_unfused(head_p, fx, tdt))}
+        del feats, fx
+        reset_launches()
+        C.bwd_launches = 0
+        t0 = time.perf_counter()
+        trainer = train_cli.main([
+            "--data_root", data, "-S2", "-NIR", "-S1", "-treg", "rwa", "-tregtrain", "rwa",
+            "-occmodel", "-senbuilds", "-pret", "-binit", "0.9407", "-tlevel", "coarse",
+            "-e", "1", "-mws", "6", "-lt", "1", "-w", "4", "--no_fused_head",
+            "--save_dir", os.path.join(tmp, "outputs_no_fused_head"),
+        ])
+        torch.cuda.synchronize()
+        nf_train_wall = time.perf_counter() - t0
+        nf_train_launches = {**read_launches(), "head_bwd": C.bwd_launches}
+        with open(os.path.join(trainer.experiment_folder, "metrics.jsonl")) as f:
+            nf_losses = [r["optimization_loss/train"] for r in map(json.loads, f)
+                         if "optimization_loss/train" in r]
+        del trainer
+        emit({"phase": "no_fused_head", "evals": nf_runs, "head_2048": nf_head,
+              "map_corr_min": DTYPE_MAP_CORR,
+              "r2_bound": NO_FUSED_R2_BOUND, "train": {"wall_s": nf_train_wall,
+                                                       "launches": nf_train_launches,
+                                                       "losses": nf_losses},
+              "seconds": time.perf_counter() - t_phase})
+        if (nf_train_launches["head"] or nf_train_launches["head_bf16"] or nf_train_launches["head_bwd"]
+                or not nf_train_launches["double_conv_bf16"] or not nf_losses
+                or not all(math.isfinite(v) for v in nf_losses)):
+            raise AssertionError(f"--no_fused_head training: launches {nf_train_launches}, "
+                                 f"losses {nf_losses}")
+
+        # --------------------------------------------------------- 10. timeseries
+        # builtup: dated frames on the region's season mosaics (S2, with S1 of
+        # its season as the descending orbit and of the next season as the
+        # ascending one) through the CLI at its 1024/64 patches, float32;
+        # then population: two steps (the region above, seed 42, and a
+        # second made from seed 43) through the CLI with the 5 members at
+        # 2048/128 in the default bf16
+        from popcorn_tpu_torch.cli import timeseries as ts_cli
+        from popcorn_tpu_torch.data.dataset import PopulationDataset, patch_grid
+        from popcorn_tpu_torch.infer import timeseries as ts
+        from popcorn_tpu_torch.infer.evaluator import load_member
+        from popcorn_tpu_torch.infer.sliding import run_sliding_inference
+
+        t_phase = time.perf_counter()
+        dp = DataPaths(data)
+        dates = ("2023-03-20", "2023-06-21")
+        spec = {"s2": [], "s1_desc": [], "s1_asc": []}
+        for i, date in enumerate(dates):
+            spec["s2"].append({"date": date, "path": dp.modality_path("rwa", "S2", SEASONS[i])})
+            spec["s1_desc"].append({"date": date, "path": dp.modality_path("rwa", "S1", SEASONS[i])})
+            spec["s1_asc"].append({"date": date, "path": dp.modality_path("rwa", "S1", SEASONS[i + 1])})
+        frames_json = os.path.join(tmp, "frames.json")
+        with open(frames_json, "w") as f:
+            json.dump(spec, f)
+        n_bu = len(patch_grid((2304, 2560), 1024, 64, fourseasons=False)) * 2 * len(dates)
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written = ts_cli.main(["builtup", "--frames", frames_json, "--out-dir", os.path.join(tmp, "builtup")])
+        torch.cuda.synchronize()
+        bu_wall = time.perf_counter() - t0
+        bu_launches = read_launches()
+        want_bu = {k: 0 for k in counters}
+        want_bu.update(double_conv=6 * n_bu, up_block=4 * n_bu)
+        if bu_launches != want_bu or len(written) != len(dates):
+            raise AssertionError(f"builtup: launches {bu_launches}, expected {want_bu}; wrote {written}")
+        # the first frame against the plain versions on the CPU, one orbit
+        # at a time, and the written map against the card's orbit maps
+        _, bconsts = load_popcorn_from_dda(mcfg)
+        s2f = ts._read_frame(spec["s2"][0]["path"], (3, 2, 1, 4))
+        orbit = {k: ts._read_frame(spec[k][0]["path"], (1, 2)) for k in ("s1_desc", "s1_asc")}
+        t0 = time.perf_counter()
+        cpu_desc = ts.builtup_map(bconsts, mcfg, s2f, orbit["s1_desc"], device="cpu")
+        bu_cpu_s = time.perf_counter() - t0
+        card = {k: ts.builtup_map(bconsts, mcfg, s2f, v, device=dev) for k, v in orbit.items()}
+        with GeoTIFF(written[0]) as gt:
+            bu_map = gt.read(1, squeeze=True)
+        bu_err = float(np.abs(card["s1_desc"] - cpu_desc).max())
+        bu_avg_err = float(np.abs(bu_map - (card["s1_desc"] + card["s1_asc"]) / 2.0).max())
+        bu_rec = {"frames": len(dates), "orbits": 2, "patch": 1024, "overlap": 64,
+                  "frame": [2304, 2560], "patches_per_frame": n_bu // (2 * len(dates)),
+                  "wall_s": bu_wall, "launches": bu_launches, "cpu_max_abs_err": bu_err,
+                  "cpu_bound": BUILTUP_ATOL, "cpu_one_orbit_s": bu_cpu_s,
+                  "written_vs_orbit_mean_max_abs": bu_avg_err,
+                  "map_range": [float(bu_map.min()), float(bu_map.max())]}
+        if not (bu_err <= BUILTUP_ATOL and bu_avg_err <= 1e-6 and 0 <= bu_map.min()
+                and bu_map.max() <= 1 and bool(np.isfinite(bu_map).all())):
+            raise AssertionError(f"builtup maps: {bu_rec}")
+        # one 1024^2 patch's score (1052^2 after the 14 px reflect pad)
+        # warmed, and a profiler trace of it: A's and B's device ms a call
+        score_fn = ts.make_score_fn(bconsts, mcfg, device=dev)
+        crop = (s2f[:1024, :1024], orbit["s1_desc"][:1024, :1024])
+        score_fn(*crop)
+        t0 = time.perf_counter()
+        for _ in range(KERNEL_REPS):
+            score_fn(*crop)  # returns a host array: synchronised
+        bu_rec["patch_ms"] = (time.perf_counter() - t0) * 1e3 / KERNEL_REPS
+        bu_prof = profile_steps("builtup patch 1024^2 float32", lambda: score_fn(*crop),
+                                bu_rec["patch_ms"])
+        bu_prof["phase"] = "timeseries_profile"
+
+        data43 = os.path.join(tmp, "data43")
+        make_synthetic_region(data43, "rwa", height=2304, width=2560, n_regions=(4, 6), seed=43)
+        steps = [{"label": "2023", "data_root": data, "region": "rwa"},
+                 {"label": "2024", "data_root": data43, "region": "rwa"}]
+        steps_json = os.path.join(tmp, "steps.json")
+        with open(steps_json, "w") as f:
+            json.dump(steps, f)
+        pop_out = os.path.join(tmp, "pop_ts")
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        records = ts_cli.main(["population", "--steps", steps_json, "--out-dir", pop_out,
+                               *eval_flags, "-r", *members])
+        torch.cuda.synchronize()
+        pop_wall = time.perf_counter() - t0
+        pop_launches = read_launches()
+        want_pop = {k: MAIN_LAUNCHES.get(k, 0) * n_patches * len(steps) for k in counters}
+        from popcorn_tpu_torch.cli.args import eval_parser, model_config_from_args
+
+        pop_cfg = model_config_from_args(eval_parser().parse_args([*eval_flags, "-r", *members]))
+        loaded = [load_member(m) for m in members]
+        pop_equal = {}
+        for s in steps:
+            ds = PopulationDataset(DataPaths(s["data_root"]), "rwa", mode="test", patchsize=2048,
+                                   overlap=128, fourseasons=False)
+            ref = run_sliding_inference([m[0] for m in loaded], loaded[0][1], pop_cfg, ds, device=dev)
+            ds.close()
+            for key, tag in (("map", ""), ("map_std", "_STD")):
+                with GeoTIFF(os.path.join(pop_out, f"rwa_predictions_{s['label']}{tag}.tif")) as gt:
+                    pop_equal[f"{s['label']}{tag}"] = bool(np.array_equal(gt.read(1, squeeze=True), ref[key]))
+        with open(os.path.join(pop_out, "totals.csv")) as f:
+            totals_rows = f.read().splitlines()
+        pop_rec = {"steps": len(steps), "patch": 2048, "overlap": 128, "members": 5,
+                   "compute_dtype": "bfloat16", "wall_s": pop_wall, "launches": pop_launches,
+                   "maps_equal_direct": pop_equal, "totals": records, "totals_csv": totals_rows}
+        emit({"phase": "timeseries", "builtup": bu_rec, "population": pop_rec,
+              "seconds": time.perf_counter() - t_phase})
+        emit(bu_prof)
+        if pop_launches != want_pop or not all(pop_equal.values()) or len(totals_rows) != 1 + len(steps) \
+                or not all(math.isfinite(r["total_population"]) and r["total_population"] > 0
+                           for r in records):
+            raise AssertionError(f"population time series: launches {pop_launches} (expected "
+                                 f"{want_pop}), maps equal {pop_equal}, totals {totals_rows}")
+        del loaded, ref
+
+        # ---------------------------------------------------------------- 11. dda
+        # DDA extractor training through its CLI on a synthetic manifest of
+        # 256^2 tiles, 8 labeled + 8 unlabeled a batch, 3 epochs; one step on
+        # the card against the CPU from the same weights; the exported
+        # extractor through create_building_score on the card
+        from popcorn_tpu_torch.cli import dda_train
+        from popcorn_tpu_torch.dda.datasets import labeled_unlabeled_batches, make_synthetic_dda_manifest
+        from popcorn_tpu_torch.dda.train import DDAConfig, DDATrainer, normalize_dda_input
+        from popcorn_tpu_torch.nn.popcorn import create_building_score
+
+        t_phase = time.perf_counter()
+        manifest = make_synthetic_dda_manifest(os.path.join(tmp, "dda"), n_labeled=32, n_unlabeled=8,
+                                               size=256, seed=0)
+        # held-out test sites for the CLI's per-site report: its morphology
+        # metrics take about 6 s a 256^2 sample on the host (the Hausdorff
+        # distance), so 4 tiles of 64^2
+        test_manifest = make_synthetic_dda_manifest(os.path.join(tmp, "dda_test"), n_labeled=4,
+                                                    n_unlabeled=0, size=64, seed=1)
+        dda_out = os.path.join(tmp, "dda_extractor.pt")
+        t0 = time.perf_counter()
+        dtr = dda_train.main(["--manifest", manifest, "--epochs", "3", "--lr", str(DDA_LR),
+                              "--out", dda_out, "--test", "--test-manifest", test_manifest])
+        torch.cuda.synchronize()
+        dda_wall = time.perf_counter() - t0
+        dda_losses = list(dtr.epoch_losses)
+        dda_eval = dtr.evaluate()
+        del dtr
+        # one step, card and CPU, from the same seeded weights and batch
+        cfg1 = DDAConfig(labeled_per_batch=8, unlabeled_per_batch=8, lr=DDA_LR)
+        ref_tr = DDATrainer(manifest, cfg1, device="cpu")
+        init = (ref_tr.params, ref_tr.bn_params, ref_tr.bn_state)
+        card_tr = DDATrainer(manifest, cfg1, device=dev, init=init)
+        lab, unl = next(iter(labeled_unlabeled_batches(ref_tr.ds, np.random.default_rng(0),
+                                                       labeled_per_batch=8, unlabeled_per_batch=8)))
+        xl, yl, xu = normalize_dda_input(lab["x"]), lab["y"], normalize_dda_input(unl["x"])
+        before = {k: v.detach().clone() for k, v in train_state.tree_flatten(ref_tr.params)}
+        losses_1 = {}
+        for name, trn in (("cpu", ref_tr), ("cuda", card_tr)):
+            losses_1[name] = float(trn.step(trn._upload(xl), trn._upload(yl), trn._upload(xu)))
+        step_rec = {"loss_cpu": losses_1["cpu"], "loss_cuda": losses_1["cuda"],
+                    "loss_rel": abs(losses_1["cuda"] - losses_1["cpu"]) / abs(losses_1["cpu"]),
+                    **adam_step_agreement(ref_tr.params, card_tr.params, before), "lr": DDA_LR}
+        del ref_tr, card_tr
+        # the exported extractor (the CLI's checkpoint) on the card
+        bparams, bbn = load_dda(dda_out, dev)
+        reset_launches()
+        x_ex = torch.from_numpy(np.random.default_rng(3).normal(size=(1, 512, 512, 6)).astype(np.float32)).to(dev)
+        ex_score = create_building_score({"params": bparams, "bn": bbn}, x_ex, s1=True, s2=True, nir=True)
+        torch.cuda.synchronize()
+        ex_launches = {k: v for k, v in read_launches().items() if v}
+        emit({"phase": "dda", "tiles": [32, 8], "tile": 256, "batch": [8, 8], "epochs": 3,
+              "cli_wall_s": dda_wall, "epoch_losses": dda_losses, "eval": dda_eval, "step": step_rec,
+              "step_bounds": {"loss_rtol": STEP_RTOL, "grad_norm_rtol": DDA_GRAD_RTOL,
+                              "update_norm_rtol": STEP_UPDATE_RTOL, "grad_floor": DDA_GRAD_FLOOR,
+                              "held_share": DDA_HELD_SHARE},
+              "export": {"launches": ex_launches, "score_range": [float(ex_score.min()),
+                                                                   float(ex_score.max())]},
+              "seconds": time.perf_counter() - t_phase})
+        if not (len(dda_losses) == 3 and all(math.isfinite(v) for v in dda_losses)
+                and dda_losses[-1] < dda_losses[0]):
+            raise AssertionError(f"DDA training: epoch losses {dda_losses}")
+        if not (step_rec["loss_rel"] <= STEP_RTOL and step_rec["grad_max_norm_rel"] <= DDA_GRAD_RTOL
+                and step_rec["update_max_norm_rel"] <= STEP_UPDATE_RTOL
+                and step_rec["held_max_move"] <= DDA_LR * 1.01
+                and step_rec["held_elements"] <= DDA_HELD_SHARE * step_rec["elements"]):
+            raise AssertionError(f"DDA step on the card against the CPU: {step_rec}")
+        if ex_launches != {"double_conv": 6, "up_block": 4} or not bool(
+                torch.isfinite(ex_score).all() and (ex_score >= 0).all() and (ex_score <= 1).all()):
+            raise AssertionError(f"exported DDA extractor: launches {ex_launches}")
+        del bparams, bbn, x_ex, ex_score
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- summary

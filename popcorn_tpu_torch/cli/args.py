@@ -48,11 +48,11 @@ def _add_runtime(p: argparse.ArgumentParser, train: bool):
     each is taken with the port's behaviour, or raises in the ``check_*``
     functions naming the ROADMAP item that ports it."""
     p.add_argument("--fused_head", action="store_true", default=None,
-                   help="accepted: the port's head always runs fused (%s)"
-                        % ("kernels C and D" if train else "kernel C"))
+                   help="the head through its fused kernels (%s), the default "
+                        "on every device" % ("C and D" if train else "C"))
     p.add_argument("--no_fused_head", dest="fused_head", action="store_false",
-                   help="raises: the unfused head is not ported yet (ROADMAP.md "
-                        "Queue 1 item 21)")
+                   help="the head as four 1x1 convs in the compute dtype (no "
+                        "head kernel)")
     p.add_argument("--remat", dest="remat_unet", action="store_true",
                    help="recompute the trainable UNet blocks' activations in the "
                         "backward (torch.utils.checkpoint)" if train else
@@ -199,14 +199,12 @@ def _refuse(todo) -> None:
 def check_train_args(a) -> None:
     """Raise for the train flags whose feature the port does not run yet
     (the TrainConfig fields are checked by TrainConfig.check)."""
-    _refuse([(a.fused_head is False, "--no_fused_head", 21),
-             (a.ensemble_parallel > 1, "--ensemble_parallel > 1", 16)])
+    _refuse([(a.ensemble_parallel > 1, "--ensemble_parallel > 1", 16)])
 
 
 def check_eval_args(a) -> None:
     """Raise for the eval flags whose feature the port does not run yet."""
-    _refuse([(a.fused_head is False, "--no_fused_head", 21),
-             (a.data_parallel > 1, "--data_parallel > 1", 16),
+    _refuse([(a.data_parallel > 1, "--data_parallel > 1", 16),
              (a.ensemble_parallel > 1, "--ensemble_parallel > 1", 16),
              (a.multihost, "--multihost", 16),
              (a.spatial, "--spatial", 17)])
@@ -226,6 +224,7 @@ def model_config_from_args(a) -> ModelConfig:
         segmentation_input=a.segmentationinput,
         feature_extractor=a.feature_extractor,
         compute_dtype=a.compute_dtype,
+        fused_head=a.fused_head is not False,  # None (no flag): fused
         quantize=getattr(a, "quantize", None) or getattr(a, "quantize_eval", None),
         remat_unet=getattr(a, "remat_unet", False),
     )

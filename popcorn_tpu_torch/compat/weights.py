@@ -187,6 +187,14 @@ def from_jax(params: Tree, consts: Tree) -> Tuple[Tree, Tree]:
     return to_torch(params), to_torch(consts)
 
 
+def from_jax_dda(params: Tree, bn_params: Tree, bn_state: Tree, device="cpu") -> Tuple[Tree, Tree, Tree]:
+    """The JAX package's DDA trainer state (popcorn_tpu/dda/train.py::
+    DDATrainer's ``params``, ``bn_params`` and ``bn_state``), given as
+    numpy arrays, as the port's trees (dda/train.py::DDATrainer's
+    ``init``): the layouts are the same, so this is leaf-wise."""
+    return to_torch(params, device), to_torch(bn_params, device), to_torch(bn_state, device)
+
+
 def load_popcorn_checkpoint(path: str, device="cpu") -> Tuple[Tree, Tree]:
     """A POPCORN .pth training checkpoint as (params, consts)."""
     sd = load_torch_state(path)

@@ -275,6 +275,12 @@ class ModelConfig:
     feature_extractor: str = "DDA"
     compute_dtype: str = "float32"  # "bfloat16": the UNets and the eval head
     # compute in bf16 (nn/popcorn.py); the CLIs default to it
+    fused_head: bool = True  # the head through kernels C (and D in
+    # training); False runs it as four 1x1 convs in the compute dtype under
+    # autograd (nn/head.py::head_unfused). popcorn_tpu/config.py:282 has the
+    # same field with default False, and its CLIs turn it on only on a TPU
+    # (popcorn_tpu/cli/args.py:230-232); the port's default is the fused
+    # head on every device
     quantize: Optional[str] = None  # eval only (train steps stay float):
     # "int8": W8A8 through the dynamic int8 kernels (nn/double_conv.py::
     # double_conv_q, nn/up_block.py::up_block_q), one activation scale per

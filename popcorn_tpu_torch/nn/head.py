@@ -24,7 +24,8 @@ their gradient in bf16.
 
 Each wrapper takes the plain version for a tensor on the CPU and launches
 its CUDA kernel for a tensor on the card; there is no fallback between
-the two.
+the two. ``head_unfused`` is the head the user selects with
+``--no_fused_head``: plain ops on every device, no kernel.
 """
 
 from __future__ import annotations
@@ -35,6 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 
 from . import cuda_lib
+from .ops import conv1x1
 
 Tree = Dict[str, Any]
 
@@ -107,6 +109,18 @@ def head_cuda(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
     else:
         launches += 1
     return out
+
+
+def head_unfused(p: Tree, feats: torch.Tensor, dtype=None) -> torch.Tensor:
+    """The head as four nn/ops.py 1x1 convs with ReLUs between them, in the
+    compute dtype ``dtype`` (None: float32), under autograd: JAX's
+    ``head_apply(..., fused=False)`` (popcorn_tpu/nn/popcorn.py:73-91),
+    the route ``ModelConfig(fused_head=False)`` selects. It launches
+    neither kernel C nor kernel D. (..., 16) -> (..., 2) in ``dtype``."""
+    x = feats
+    for name in HEAD_LAYERS[:-1]:
+        x = torch.relu(conv1x1(x, p[name], dtype))
+    return conv1x1(x, p["l4"], dtype)
 
 
 def head_apply(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:

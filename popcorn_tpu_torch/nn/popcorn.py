@@ -27,6 +27,16 @@ eval head compute in bf16 (nn/unet.py, nn/head.py), the training head in
 float32 (as fused_head), and the maps, popcount and losses are float32.
 The static int8 stream quantizes its float32 input and rounds only its
 float features to bf16 (popcorn_tpu/nn/packed.py:482).
+
+The head (``cfg.fused_head``, JAX's gate ``cfg.fused_head and
+feats.shape[-1] == 16``, popcorn_tpu/nn/popcorn.py:627): fused, kernel C
+(and D in training, nn/head.py); unfused, four 1x1 convs in the compute
+dtype under autograd (nn/head.py::head_unfused), in training and in eval,
+so a bf16 unfused head computes in bf16 where the fused training head
+computes in float32, as in the JAX package. JAX's eval of an unpadded
+patch takes its packed engine, whose unfused head is packed_head_apply,
+the same four products in block-diagonal form (:599-613); on the port's
+one plain engine the unfused route stands for both.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ from typing import Any, Dict, Optional
 import torch
 
 from ..config import ModelConfig
-from .head import head_apply, head_train
+from .head import head_apply, head_train, head_unfused
 from .ops import add_padding, revert_padding
 from .quant import calibrate_stream
 from .unet import SAR_IN, building_logits, dual_stream_features, unet_stream_qs
@@ -228,9 +238,11 @@ def popcorn_forward(
     (nn/head.py::head_train). Without ``train`` the whole model runs its
     kernels and the head emits channel 0 only: call it under no_grad
     (``popcorn_predict``), as the kernels refuse tensors that need a
-    gradient. ``padding``: True reflect-pads 14 px, False pads by the
-    reference's rule (``add_padding(force=False)``), None runs the input
-    as it is (the eval fold's choice, ``fold_unpadded``). ``sparse``
+    gradient. With ``cfg.fused_head`` False the head is
+    nn/head.py::head_unfused in both (module docstring). ``padding``: True
+    reflect-pads 14 px, False pads by the reference's rule
+    (``add_padding(force=False)``), None runs the input as it is (the eval
+    fold's choice, ``fold_unpadded``). ``sparse``
     draws the sparsity mask from ``generator`` unless a precomputed
     ``mask`` (B,H,W) bool is given. ``scales``: the
     member's static int8 scales (``calibrate_member_scales``), which the
@@ -289,7 +301,9 @@ def popcorn_forward(
             quantize=quantize_int8(cfg, train) and unpadded, dtype=dtype,
         )
     feats = revert_padding(feats, pad).contiguous()
-    if train:
+    if not (cfg.fused_head and feats.shape[-1] == 16):  # the kernels are 16-channel only
+        out = head_unfused(params["head"], feats, dtype)[..., 0].float()
+    elif train:
         out = head_train(params["head"], feats)[..., 0]
     else:
         out = head_apply(params["head"], feats, n_out=1)[..., 0].float()

@@ -15,9 +15,15 @@ from __future__ import annotations
 
 from typing import Any, Dict, Optional
 
+import numpy as np
 import torch
 
-from ..compat.weights import load_popcorn_checkpoint, save_popcorn_checkpoint, to_torch
+from ..compat.weights import (
+    dual_stream_from_tree,
+    load_popcorn_checkpoint,
+    save_popcorn_checkpoint,
+    to_torch,
+)
 from .state import tree_flatten, tree_unflatten
 
 Tree = Dict[str, Any]
@@ -42,6 +48,18 @@ def save_checkpoint(
             "mu": _flat(opt_state["mu"]), "nu": _flat(opt_state["nu"]),
         }
     save_popcorn_checkpoint(path, params, consts, epoch=epoch, iteration=iteration, optimizer=opt)
+
+
+def save_dda_checkpoint(path: str, state: Tree) -> None:
+    """Write a trained DDA extractor, ``{'unet': params, 'unet_bn': frozen
+    BN constants}`` (dda/train.py::DDATrainer.export_for_popcorn), in the
+    reference's DDA checkpoint format ({'network': state dict}, the format
+    of weights/fusionda_*.pt), which compat/weights.py::load_dda and the
+    POPCORN_DDA_CHECKPOINT override read back. The JAX package writes the
+    same trees as an Orbax directory."""
+    sd = dual_stream_from_tree(state["unet"], state["unet_bn"])
+    torch.save({"network": {k: torch.from_numpy(np.array(v, copy=True)) for k, v in sd.items()}},
+               path)
 
 
 def restore_checkpoint(path: str, device="cpu") -> Dict[str, Any]:

@@ -60,7 +60,7 @@ def test_every_run_eval_flag_is_taken_or_refused_with_a_reason(argv):
 
 @pytest.mark.parametrize(
     "argv,item",
-    [(["--no_fused_head"], 21), (["--data_parallel", "2"], 16), (["--ensemble_parallel", "2"], 16),
+    [(["--data_parallel", "2"], 16), (["--ensemble_parallel", "2"], 16),
      (["--multihost"], 16), (["--spatial"], 17)],
     ids=lambda v: " ".join(v) if isinstance(v, list) else str(v),
 )
@@ -102,9 +102,18 @@ def test_train_feed_flags_are_taken(argv, field, value):
     assert getattr(train_config_from_args(args), field) == value
 
 
-def test_no_fused_head_is_refused_in_train_with_its_item():
-    with pytest.raises(NotImplementedError, match=r"item 21\)"):
-        check_train_args(train_parser().parse_args(["--no_fused_head"]))
+def test_no_fused_head_reaches_the_model_config_in_eval():
+    args, _ = _configs(["--no_fused_head"])
+    assert model_config_from_args(args).fused_head is False
+    for argv in ([], ["--fused_head"]):
+        assert model_config_from_args(_configs(argv)[0]).fused_head is True
+
+
+def test_no_fused_head_reaches_the_model_config_in_train():
+    args = train_parser().parse_args(["--no_fused_head"])
+    check_train_args(args)
+    assert model_config_from_args(args).fused_head is False
+    assert model_config_from_args(train_parser().parse_args([])).fused_head is True
 
 
 def test_package_exports_train_config():

@@ -1,7 +1,8 @@
 """The port stands alone: every module of popcorn_tpu_torch imports with
-jax, ml_dtypes and popcorn_tpu made unimportable, and no file of the
-package (nor chip_smoke.py) imports any of them (the machine with the card
-has none of them)."""
+jax, ml_dtypes, optax, orbax and popcorn_tpu made unimportable, and no
+file of the package (nor chip_smoke.py) imports any of them (the machine
+with the card has none of them); the time-series and DDA modules import
+no pandas or matplotlib either."""
 
 import ast
 import os
@@ -13,7 +14,12 @@ import pytest
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(ROOT, "popcorn_tpu_torch")
-FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "popcorn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "optax", "orbax", "popcorn_tpu")
+# modules that also import neither pandas nor a plotting library: the time
+# series and DDA training write their tables with the csv module
+NO_PANDAS = ("dda/datasets.py", "dda/losses.py", "dda/metrics.py", "dda/network.py",
+             "dda/train.py", "infer/timeseries.py", "infer/pop_timeseries.py",
+             "cli/timeseries.py", "cli/dda_train.py")
 
 
 def _sources():
@@ -39,6 +45,12 @@ def test_no_jax_or_reference_package_import(path):
     assert not bad, f"{os.path.relpath(path, ROOT)} imports {bad}"
 
 
+@pytest.mark.parametrize("rel", NO_PANDAS)
+def test_no_pandas_or_matplotlib_import(rel):
+    bad = sorted(set(_imported_roots(os.path.join(PKG, rel))) & {*FORBIDDEN, "pandas", "matplotlib"})
+    assert not bad, f"{rel} imports {bad}"
+
+
 def test_every_module_imports_without_jax():
     code = textwrap.dedent(
         """
@@ -46,7 +58,7 @@ def test_every_module_imports_without_jax():
 
         class Block:
             def find_spec(self, name, path=None, target=None):
-                if name.split(".")[0] in ("jax", "jaxlib", "ml_dtypes", "popcorn_tpu"):
+                if name.split(".")[0] in FORBIDDEN:
                     raise ImportError(f"blocked: {name}")
                 return None
 
@@ -56,10 +68,10 @@ def test_every_module_imports_without_jax():
         for m in pkgutil.walk_packages(popcorn_tpu_torch.__path__, "popcorn_tpu_torch."):
             importlib.import_module(m.name)
             n += 1
-        assert not [k for k in sys.modules if k.split(".")[0] in ("jax", "ml_dtypes", "popcorn_tpu")]
+        assert not [k for k in sys.modules if k.split(".")[0] in FORBIDDEN]
         print(n)
         """
-    )
+    ).replace("FORBIDDEN", repr(FORBIDDEN))
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True, text=True,
