@@ -103,8 +103,25 @@ Phases, each printing one JSON line:
                3 epochs): the loss falls; one step on the card against the
                CPU from the same weights (adam_step_agreement); the
                exported checkpoint through create_building_score on the
-               card (6 A, 4 B).
-Each of phases 9-11 prints its wall seconds.
+               card (6 A, 4 B);
+ 12. dist    — ranks and whole frames: the eval CLI with --spatial at
+               bf16 and float32 on one rank (A, B, C launched once a
+               frame), its interior held to the stitched eval of the same
+               dtype (SPATIAL_INTERIOR) and its outer ring non-zero where
+               the stitched map is 0; the builder in 512-row chunks and
+               the member fold in 1024-row strips against the whole frame
+               (STRIP_TOL); the builtup time series with --spatial against
+               its patch path (BUILTUP_PATCH_TOL); the two-process
+               rehearsal (dist/multihost.py) with both workers on cuda:0
+               over gloo against one rank (loss, stepped parameters, the
+               ensemble fold's sum; A-D launched in each worker's step);
+               the Evaluator with the patches over two data ranks and with
+               the members over two ensemble ranks, both on cuda:0 over
+               gloo (dist/launch.py), rank 0's written map against the
+               one-rank map (RANKED_MAP_TOL), rank 0 alone writing the one
+               output folder and the census, and each rank's launches
+               exact.
+Each of phases 9-12 prints its wall seconds.
 Kernel D (the head backward) is checked in phase 3 at the train phase's
 bucket shape (2x1024x1024) and at 2x2048^2. Then the {"kernels": [...]}
 summary, the nvidia-smi name/power line, and last {"ok": true, "device":
@@ -287,6 +304,21 @@ DDA_LR = 1e-3
 DDA_GRAD_RTOL = 1e-3
 DDA_GRAD_FLOOR = 1e-6
 DDA_HELD_SHARE = 0.05
+# dist: the whole-frame eval's interior (beyond the stitched eval's
+# 128-px ring) against the stitched eval of the same dtype
+# (tests/test_spatial.py:158's bound); the builder in 512-row chunks and
+# the member fold in 1024-row strips against the whole frame
+# (tests/test_spatial.py:248); the builtup time series' whole frame against
+# its patch path (tests/test_spatial.py:133); the two-rank rehearsal
+# against one rank: loss, the stepped parameters (tests/test_spatial.py:
+# 212-216, the JAX bounds for a sharded step) and the ensemble fold's sum;
+# the two-rank evals' maps against the one-rank map
+SPATIAL_INTERIOR = dict(rtol=2e-4, atol=2e-5)
+STRIP_TOL = dict(rtol=1e-5, atol=1e-6)
+BUILTUP_PATCH_TOL = dict(rtol=2e-5, atol=2e-6)
+REHEARSAL_LOSS_RTOL, REHEARSAL_PARAMS = 1e-5, dict(rtol=1e-4, atol=1e-7)
+RANKED_MAP_TOL = dict(rtol=1e-5, atol=1e-6)
+RING = 128
 KERNEL_REPS = 10
 # device_ms: the most traces it takes to find one that holds every launch
 TRACE_TRIES = 3
@@ -358,7 +390,10 @@ def device_ms(fn, function: str, reps: int = KERNEL_REPS):
     call. None if the trace holds no such kernel. The trace must hold every
     launch: ``function`` once a call, each kernel of an empty one a whole
     number of times a call: a trace that does not is taken again, at most
-    TRACE_TRIES times in all, then it raises."""
+    TRACE_TRIES times in all. If every trace lost records of a named
+    ``function`` (one kernel, launched once a call), the time is the mean
+    of the launches the last trace holds, when it holds at least half of
+    them, and a ``trace_loss`` line says how many; else it raises."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -379,6 +414,10 @@ def device_ms(fn, function: str, reps: int = KERNEL_REPS):
                 if (e.count != reps if function else e.count % reps)}
         if not lost:
             return sum(dev_us(e) for e in mine) / 1e3 / reps
+    if function and len(mine) == 1 and reps // 2 <= mine[0].count < reps:
+        emit({"phase": "trace_loss", "function": function, "calls": reps,
+              "recorded": mine[0].count, "traces": TRACE_TRIES})
+        return dev_us(mine[0]) / 1e3 / mine[0].count
     raise AssertionError(f"device_ms: {TRACE_TRIES} traces of {reps} calls each, the last with "
                          f"{lost} launches of {function or 'the call'}'s kernels")
 
@@ -599,6 +638,52 @@ def up_q_library(wtq, dt, tt, waq, da, wbq, db, t1, w2q, d2, t2, x1, x2):
     y1q, sy = quantize_tiles(y1)
     out = torch.relu(int_mm_conv3x3(y1q, w2q, same=False) * (d2 * sy) + t2)
     return untile(out, b, hh, ww)
+
+
+def close_report(got, ref, rtol: float, atol: float) -> dict:
+    """Max abs and max relative (to |ref|) difference, and whether
+    |got - ref| <= atol + rtol |ref| holds everywhere."""
+    import numpy as np
+
+    got, ref = np.asarray(got, np.float64), np.asarray(ref, np.float64)
+    d = np.abs(got - ref)
+    return {"max_abs": float(d.max()), "max_rel": float((d / np.maximum(np.abs(ref), 1e-30)).max()),
+            "ok": bool((d <= atol + rtol * np.abs(ref)).all())}
+
+
+def ranked_eval(data: str, members: list, flags: list, out: str, n_data: int,
+                n_ensemble: int) -> None:
+    """One of two ranks sharing cuda:0 over gloo (dist/launch.py spawns
+    them): the Evaluator of the eval CLI's command line (its default
+    dtype) with the patches over ``n_data`` ranks and the members over
+    ``n_ensemble``, writing its products next to ``members`` (rank 0
+    only). Every rank writes its wall time, kernel launches, output folder
+    and census metric count to ``out``.rank<r>.json."""
+    import torch
+
+    from popcorn_tpu_torch.cli.args import eval_config_from_args, eval_parser, model_config_from_args
+    from popcorn_tpu_torch.config import DataPaths
+    from popcorn_tpu_torch.dist.mesh import make_mesh
+    from popcorn_tpu_torch.infer.evaluator import Evaluator
+    from popcorn_tpu_torch.nn import double_conv as A
+    from popcorn_tpu_torch.nn import head as C
+    from popcorn_tpu_torch.nn import up_block as B
+
+    mesh = make_mesh(n_data, devices=["cuda:0"] * 2, n_ensemble=n_ensemble)
+    a = eval_parser().parse_args(["--data_root", data, *flags, "-r", *members])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ev = Evaluator(DataPaths(data), model_config_from_args(a), eval_config_from_args(a), mesh=mesh)
+    stats = ev.test_target(save=True)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    with open(f"{out}.rank{mesh.rank}.json", "w") as f:
+        json.dump({"rank": mesh.rank, "backend": mesh.backend, "wall_s": wall,
+                   "folder": ev.experiment_folder, "n_metrics": len(stats),
+                   "writes": ev.logger is not None,
+                   "launches": {"double_conv_bf16": A.launches_bf16, "up_block_bf16": B.launches_bf16,
+                                "head_bf16": C.launches_bf16, "double_conv": A.launches,
+                                "up_block": B.launches, "head": C.launches}}, f)
 
 
 def main() -> None:
@@ -1208,14 +1293,15 @@ def main() -> None:
 
         n_patches = 4  # patch grid of a 2304x2560 region at 2048/128
 
-        def run_eval(tag, extra=(), want=None, config=None, timings=None):
+        def run_eval(tag, extra=(), want=None, config=None, timings=None, units=n_patches):
             """One eval of the 5 members, from a folder of links to them
             where it writes its outputs: through the eval CLI with the
             ``extra`` flags, or through the Evaluator with ``config`` (a
             function of the CLI's ModelConfig). Launch counts are checked
-            against ``want`` per patch; ``timings`` receives the sliding
-            window's split. Returns the stats, wall seconds, launches and
-            the output folder's glob."""
+            against ``want`` per patch (per ``units``: the whole-frame eval
+            has one a season); ``timings`` receives the sliding window's
+            split. Returns the stats, wall seconds, launches and the output
+            folder's glob."""
             from popcorn_tpu_torch.cli.args import eval_config_from_args, eval_parser, model_config_from_args
             from popcorn_tpu_torch.config import DataPaths
             from popcorn_tpu_torch.infer.evaluator import Evaluator
@@ -1240,7 +1326,7 @@ def main() -> None:
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             got_l = read_launches()
-            want_l = {k: want.get(k, 0) * n_patches for k in counters}
+            want_l = {k: want.get(k, 0) * units for k in counters}
             if got_l != want_l:
                 raise AssertionError(f"eval {tag}: launches {got_l}, expected {want_l}")
             folder_glob = os.path.join(mdir, "eval_outputs_ensemble_*")
@@ -1987,6 +2073,182 @@ def main() -> None:
                 torch.isfinite(ex_score).all() and (ex_score >= 0).all() and (ex_score <= 1).all()):
             raise AssertionError(f"exported DDA extractor: launches {ex_launches}")
         del bparams, bbn, x_ex, ex_score
+        torch.cuda.empty_cache()
+
+        # ---------------------------------------------------------------- 12. dist
+        # (a) the whole-frame eval (--spatial) through the CLI at bf16 and
+        # float32 on one rank; (b) the builder chunks and member strips on
+        # the verify frame; (c) the builtup time series --spatial; (d) the
+        # two-process rehearsal on cuda:0 over gloo against one rank; (e)
+        # the data- and ensemble-parallel evals of two ranks on cuda:0 over
+        # gloo against the one-rank eval
+        import torch.distributed as tdist
+
+        from popcorn_tpu_torch.dist.launch import spawn_ranks
+        from popcorn_tpu_torch.dist.mesh import make_mesh
+        from popcorn_tpu_torch.dist.multihost import (
+            flat_tree,
+            launch_workers,
+            run_demo_eval,
+            run_demo_step,
+        )
+        from popcorn_tpu_torch.infer import spatial as sp
+        from popcorn_tpu_torch.infer.device_feed import season_arrays
+
+        t_phase = time.perf_counter()
+        if tdist.is_initialized():
+            raise AssertionError("a process group is up before phase dist")
+        dist_rec = {}
+        # (a) the whole frame: one season, so the counts of one patch
+        spatial_ok = True
+        for tag, extra, ref_glob in (("bfloat16", (), main_glob),
+                                     ("float32", ("--compute_dtype", "float32"), glob32)):
+            want = MAIN_LAUNCHES if tag == "bfloat16" else want32
+            split_sp = {}
+            st_sp, wall_sp, l_sp, glob_sp = run_eval(f"spatial_{tag}", ("--spatial", *extra), want,
+                                                     timings=split_sp, units=1)
+            sp_map, st_map = read_map(glob_sp), read_map(ref_glob)
+            inner = (slice(RING, -RING), slice(RING, -RING))
+            rep_ = close_report(sp_map[inner], st_map[inner], **SPATIAL_INTERIOR)
+            ring = np.ones(sp_map.shape, bool)
+            ring[inner] = False
+            rec = {"wall_s": wall_sp, "timings": split_sp["rwa"],
+                   "launches": {k: v for k, v in l_sp.items() if v},
+                   "interior": rep_, "ring_max": float(sp_map[ring].max()),
+                   "stitched_ring_max": float(np.abs(st_map[ring]).max()),
+                   "adj_coarse_r2": st_sp["Population_AdjCensus_rwa_coarse/r2"]}
+            dist_rec[f"spatial_{tag}"] = rec
+            spatial_ok &= rep_["ok"] and rec["ring_max"] > 0 and rec["stitched_ring_max"] == 0
+        # (b) float32: the builder in 512-row chunks, the member fold in
+        # 1024-row strips, against the whole frame
+        cfg32 = model_config_from_args(eval_parser().parse_args(
+            [*eval_flags, "--compute_dtype", "float32", "-r", *members]))
+        loaded = [load_member(m) for m in members]
+        dsv = PopulationDataset(DataPaths(data), "rwa", mode="test", patchsize=2048, overlap=128,
+                                fourseasons=False)
+        mos, _ = season_arrays(dsv, 0)
+        dsv.close()
+        sample = {k: np.transpose(a, (1, 2, 0))[None] for k, a in mos.items()}
+        mconsts = to_torch(loaded[0][1], dev)
+        x_sp = sp._inputs(sample, cfg32, NormStats(device=dev), slice(0, 2304), dev)
+        reset_launches()
+        whole_b = create_building_score(mconsts["builder"], x_sp, s1=True, s2=True, nir=True)
+        chunk_b = sp.chunked_building_score(mconsts, x_sp, cfg32, None, rows_per_chunk=512)
+        torch.cuda.synchronize()
+        chunk_launches = {k: v for k, v in read_launches().items() if v}
+        b_rep = close_report(chunk_b.cpu().numpy(), whole_b.cpu().numpy(), **STRIP_TOL)
+        fold_whole = sp.make_spatial_ensemble(cfg32, mconsts, None, 5, device=dev)
+        acc_w = fold_whole([m[0] for m in loaded], sample, sp.new_accumulators(2304, 2560, device=dev))
+        min_h = sp._MEMBER_CHUNK_MIN_H
+        sp._MEMBER_CHUNK_MIN_H = 2304
+        try:
+            fold_strips = sp.make_spatial_ensemble(cfg32, mconsts, None, 5, device=dev, strip_rows=1024)
+            reset_launches()
+            acc_s = fold_strips([m[0] for m in loaded], sample,
+                                sp.new_accumulators(2304, 2560, device=dev))
+            torch.cuda.synchronize()
+            strip_launches = {k: v for k, v in read_launches().items() if v}
+        finally:
+            sp._MEMBER_CHUNK_MIN_H = min_h
+        s_rep = {k: close_report(acc_s[k].cpu().numpy(), acc_w[k].cpu().numpy(), **STRIP_TOL)
+                 for k in acc_w}
+        dist_rec["strips"] = {"builder_512": b_rep, "builder_launches": chunk_launches,
+                              "fold_1024": s_rep, "fold_launches": strip_launches}
+        strips_ok = b_rep["ok"] and all(r["ok"] for r in s_rep.values())
+        del acc_w, acc_s, x_sp, whole_b, chunk_b, fold_whole, fold_strips
+        torch.cuda.empty_cache()
+        # (c) the builtup time series' whole frames against the patch path
+        # of a patch that holds the whole frame
+        reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        written_sp = ts_cli.main(["builtup", "--frames", frames_json, "--out-dir",
+                                  os.path.join(tmp, "builtup_spatial"), "--spatial"])
+        torch.cuda.synchronize()
+        bu_sp_wall = time.perf_counter() - t0
+        bu_sp_launches = {k: v for k, v in read_launches().items() if v}
+        with GeoTIFF(written_sp[0]) as gt:
+            bu_sp = gt.read(1, squeeze=True)
+        whole_patch = sum(ts.builtup_map(bconsts, mcfg, s2f, v, patchsize=4096, device=dev)
+                          for v in orbit.values()) / 2.0
+        c_rep = close_report(bu_sp, whole_patch, **BUILTUP_PATCH_TOL)
+        dist_rec["builtup_spatial"] = {"wall_s": bu_sp_wall, "launches": bu_sp_launches,
+                                       "frames": len(written_sp), "vs_patch_path": c_rep}
+        builtup_ok = c_rep["ok"] and bu_sp_launches == {"double_conv": 6 * 2 * len(dates),
+                                                        "up_block": 4 * 2 * len(dates)}
+        # (d) the two-process rehearsal on the card against one rank
+        out_params = os.path.join(tmp, "rehearsal_params.pt")
+        worker_launches = []
+        t0 = time.perf_counter()
+        (l0, p0, e0), (l1, p1, e1) = launch_workers(2, device="cuda:0", out=out_params,
+                                                    timeout=600, launches=worker_launches)
+        rehearsal_wall = time.perf_counter() - t0
+        one_loss, one_pop, one_params = run_demo_step(None, device=dev)
+        one_ens = run_demo_eval(None, device=dev)
+        got_p = torch.load(out_params)
+        p_reps = {k: close_report(got_p[k].numpy(), v.cpu().numpy(), **REHEARSAL_PARAMS)
+                  for k, v in flat_tree(one_params).items()}
+        worst = max(p_reps, key=lambda k: p_reps[k]["max_abs"])
+        d_rec = {"wall_s": rehearsal_wall, "loss": [l0, l1, one_loss], "popsum": [p0, p1, one_pop],
+                 "enssum": [e0, e1, one_ens], "loss_rel": abs(l0 - one_loss) / abs(one_loss),
+                 "enssum_rel": abs(e0 - one_ens) / abs(one_ens), "params_ok": all(
+                     r["ok"] for r in p_reps.values()), "params_worst": {worst: p_reps[worst]},
+                 "worker_launches": worker_launches}
+        dist_rec["rehearsal"] = d_rec
+        step_launches = {"double_conv": 6, "up_block": 4, "head": 1, "head_bwd": 1}
+        rehearsal_ok = (d_rec["loss_rel"] <= REHEARSAL_LOSS_RTOL and l0 == l1 and e0 == e1
+                        and d_rec["enssum_rel"] <= REHEARSAL_LOSS_RTOL and d_rec["params_ok"]
+                        and worker_launches == [step_launches, step_launches])
+        del one_params, got_p
+        # (e) data- and ensemble-parallel evals of two ranks on the card
+        ranked = {}
+        ranked_ok = True
+        one_map = read_map(main_glob)
+        per_patch = {"double_conv_bf16": 6, "up_block_bf16": 4}  # the builder
+        for nd, ne in ((2, 1), (1, 2)):
+            out = os.path.join(tmp, f"ranked_{nd}x{ne}")
+            os.makedirs(out)
+            links = []
+            for m in members:
+                links.append(os.path.join(out, os.path.basename(m)))
+                os.symlink(m, links[-1])
+            t0 = time.perf_counter()
+            spawn_ranks(ranked_eval, 2, (data, links, eval_flags, out, nd, ne),
+                        devices=["cuda:0", "cuda:0"])
+            wall_r = time.perf_counter() - t0
+            ranks = [json.load(open(f"{out}.rank{r}.json")) for r in range(2)]
+            # rank 0 alone writes, into the one folder both ranks name
+            folders = glob.glob(os.path.join(out, "eval_outputs_ensemble_*"))
+            writes_ok = (folders == [ranks[0]["folder"]] == [ranks[1]["folder"]]
+                         and [r["writes"] for r in ranks] == [True, False]
+                         and ranks[0]["n_metrics"] == len(stats) and ranks[1]["n_metrics"] == 0)
+            got = {"map": read_map(folders[0]) if folders else np.zeros(1)}
+            want_r = []
+            for r in range(2):
+                n_mem = 5 if ne == 1 else (3, 2)[r]
+                n_pat = n_patches // nd
+                want_r.append({"double_conv_bf16": n_pat * (per_patch["double_conv_bf16"] + 6 * n_mem),
+                               "up_block_bf16": n_pat * (per_patch["up_block_bf16"] + 4 * n_mem),
+                               "head_bf16": n_pat * n_mem, "double_conv": 0, "up_block": 0,
+                               "head": 0})
+            m_rep = close_report(got["map"], one_map, **RANKED_MAP_TOL)
+            ranked[f"{nd}x{ne}"] = {"spawn_wall_s": wall_r, "ranks": ranks, "map": m_rep,
+                                    "expected_launches": want_r, "rank0_writes_only": writes_ok}
+            ranked_ok &= m_rep["ok"] and writes_ok and [r["launches"] for r in ranks] == want_r \
+                and all(r["backend"] == "gloo" for r in ranks)
+        dist_rec["ranked_evals"] = ranked
+        if tdist.is_initialized():
+            raise AssertionError("phase dist left a process group up")
+        emit({"phase": "dist", **dist_rec, "bounds": {
+            "spatial_interior": SPATIAL_INTERIOR, "strips": STRIP_TOL,
+            "builtup_patch": BUILTUP_PATCH_TOL, "rehearsal_loss_rtol": REHEARSAL_LOSS_RTOL,
+            "rehearsal_params": REHEARSAL_PARAMS, "ranked_map": RANKED_MAP_TOL},
+            "seconds": time.perf_counter() - t_phase})
+        checks = {"spatial": spatial_ok, "strips": strips_ok, "builtup": builtup_ok,
+                  "rehearsal": rehearsal_ok, "ranked": ranked_ok}
+        if not all(checks.values()):
+            raise AssertionError(f"phase dist: {checks}")
+        del loaded
         torch.cuda.empty_cache()
 
     # ---------------------------------------------------------------- summary

@@ -45,8 +45,7 @@ def _add_common(p: argparse.ArgumentParser):
 
 def _add_runtime(p: argparse.ArgumentParser, train: bool):
     """The JAX parsers' runtime flags (popcorn_tpu/cli/args.py::_add_common):
-    each is taken with the port's behaviour, or raises in the ``check_*``
-    functions naming the ROADMAP item that ports it."""
+    each is taken with the port's behaviour."""
     p.add_argument("--fused_head", action="store_true", default=None,
                    help="the head through its fused kernels (%s), the default "
                         "on every device" % ("C and D" if train else "C"))
@@ -58,11 +57,17 @@ def _add_runtime(p: argparse.ArgumentParser, train: bool):
                         "backward (torch.utils.checkpoint)" if train else
                         "accepted: no effect in eval, where no gradient flows")
     p.add_argument("--data_parallel", type=int, default=1,
-                   help="> 1 raises: not ported yet (ROADMAP.md Queue 1 item 16)")
+                   help="ranks on the 'data' axis: the batch's rows split over them "
+                        "(training) or the patches (eval); typed without torchrun, "
+                        "the CLI spawns them on this host, one a card (one a CPU "
+                        "process with --device cpu)")
     p.add_argument("--ensemble_parallel", type=int, default=1,
-                   help="> 1 raises: not ported yet (ROADMAP.md Queue 1 item 16)")
+                   help="ranks on the 'ensemble' axis: Bag-of-POPCORN members split "
+                        "over them (eval only; training runs its data ranks)")
     p.add_argument("--multihost", action="store_true",
-                   help="raises: not ported yet (ROADMAP.md Queue 1 item 16)")
+                   help="ranks over several hosts (torchrun on each): data-parallel "
+                        "across hosts, data/ensemble within each; one process "
+                        "degrades to this host's ranks")
     p.add_argument("--compile_cache", nargs="?", const="", default=None, metavar="DIR",
                    help="accepted and ignored: PyTorch runs eagerly, there is no "
                         "XLA program to cache (the kernels are cached in "
@@ -110,7 +115,10 @@ def eval_parser() -> argparse.ArgumentParser:
                         "with int4-grid weights. Census r2 stays within 0.02 "
                         "of the float run")
     p.add_argument("--spatial", action="store_true",
-                   help="raises: not ported yet (ROADMAP.md Queue 1 item 17)")
+                   help="whole-region inference: every member over each season's "
+                        "whole mosaic (row blocks over the ranks), no patches or "
+                        "stitch; the border ring holds true output where the "
+                        "stitched map is 0")
     p.add_argument("--transport", choices=("exact", "bf16"), default="exact",
                    help=TRANSPORT_HELP)
     return p
@@ -119,8 +127,8 @@ def eval_parser() -> argparse.ArgumentParser:
 def train_parser() -> argparse.ArgumentParser:
     """The flags of run_train.py (popcorn_tpu/cli/args.py::train_parser).
     Flags of features the port does not run yet are accepted by the parser
-    and raise in ``train_config_from_args``/``check_train_args``, naming
-    the ROADMAP item that ports them; none is ignored silently."""
+    and raise in ``train_config_from_args``, naming the ROADMAP item that
+    ports them; none is ignored silently."""
     p = argparse.ArgumentParser(
         description="POPCORN training (PyTorch/CUDA port)", fromfile_prefix_chars="@"
     )
@@ -189,25 +197,10 @@ def train_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _refuse(todo) -> None:
-    """Raise for the first (set, flag, ROADMAP item) whose flag is set."""
-    for bad, what, item in todo:
-        if bad:
-            raise NotImplementedError(f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})")
-
-
-def check_train_args(a) -> None:
-    """Raise for the train flags whose feature the port does not run yet
-    (the TrainConfig fields are checked by TrainConfig.check)."""
-    _refuse([(a.ensemble_parallel > 1, "--ensemble_parallel > 1", 16)])
-
-
-def check_eval_args(a) -> None:
-    """Raise for the eval flags whose feature the port does not run yet."""
-    _refuse([(a.data_parallel > 1, "--data_parallel > 1", 16),
-             (a.ensemble_parallel > 1, "--ensemble_parallel > 1", 16),
-             (a.multihost, "--multihost", 16),
-             (a.spatial, "--spatial", 17)])
+def n_ranks(a) -> int:
+    """The ranks a command asks for: --data_parallel x --ensemble_parallel
+    (an eval's grid; training uses its data ranks)."""
+    return max(1, a.data_parallel) * max(1, getattr(a, "ensemble_parallel", 1))
 
 
 def model_config_from_args(a) -> ModelConfig:
@@ -310,4 +303,5 @@ def eval_config_from_args(a) -> EvalConfig:
         device_feed=a.device_feed,
         transport=a.transport,
         debug_nans=a.debug_nans,
+        spatial=a.spatial,
     )

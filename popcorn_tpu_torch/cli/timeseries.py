@@ -10,16 +10,20 @@ Built-up mode: frames.json lists dated single-frame rasters,
    "s1_desc": [...], "s1_asc": [...]}
   python -m popcorn_tpu_torch.cli.timeseries builtup --frames frames.json --out-dir builtup/
 The extractor is the repo's DDA checkpoint (or POPCORN_DDA_CHECKPOINT,
-such as a checkpoint from popcorn_tpu_torch.cli.dda_train).
+such as a checkpoint from popcorn_tpu_torch.cli.dda_train). --spatial
+scores each whole frame in one call over this process's ranks (one, or
+torchrun's) instead of overlap-stitched patches (infer/spatial.py).
 
 Population mode: steps.json lists (label, data_root, region) steps,
   [{"label": "2020", "data_root": "/data/2020", "region": "cod"}, ...]
   python -m popcorn_tpu_torch.cli.timeseries population --steps steps.json \
       -r m1.pth m2.pth m3.pth m4.pth m5.pth -S1 -S2 -NIR -occmodel -senbuilds --out-dir ts/
-with the eval CLI's flags (cli/args.py::eval_parser; those the port does
-not run yet raise naming their ROADMAP item, as in cli/eval.py). The
-patches are --patchsize/--patch_overlap (2048/128 by default, the sizes
-run_timeseries.py uses; it does not read these flags).
+with the eval CLI's flags (cli/args.py::eval_parser), as cli/eval.py
+takes them: --data_parallel/--ensemble_parallel spawn the ranks each
+step's eval splits over, --spatial runs each step's eval whole-frame
+(run_timeseries.py parses these flags and runs one process's stitched
+eval). The patches are --patchsize/--patch_overlap (2048/128 by default,
+the sizes run_timeseries.py uses; it does not read these flags).
 """
 
 from __future__ import annotations
@@ -37,15 +41,15 @@ def _builtup(argv):
     p.add_argument("--overlap", type=int, default=64)
     p.add_argument("--no-nir", action="store_true")
     p.add_argument("--spatial", action="store_true",
-                   help="raises: not ported yet (ROADMAP.md Queue 1 item 17)")
+                   help="score each whole frame in one call over this process's "
+                        "ranks instead of overlap-stitched patches")
     p.add_argument("--device", default="cuda",
                    help="torch device: 'cuda' (default; raises without a card) or 'cpu'")
     a = p.parse_args(argv)
-    if a.spatial:
-        raise NotImplementedError("--spatial is not ported yet (ROADMAP.md Queue 1 item 17)")
 
     from ..compat.weights import load_popcorn_from_dda
     from ..config import ModelConfig
+    from ..dist.mesh import devices_for, make_mesh
     from ..infer.timeseries import Frame, find_closest_frames, parse_date, run_builtup_timeseries
 
     with open(a.frames) as f:
@@ -57,26 +61,49 @@ def _builtup(argv):
     mcfg = ModelConfig(nir=not a.no_nir)
     _, consts = load_popcorn_from_dda(mcfg)
     pairs = find_closest_frames(frames("s2"), frames("s1_desc"), frames("s1_asc"))
+    mesh = make_mesh(devices=devices_for(a.device)) if a.spatial else None
     written = run_builtup_timeseries(consts, mcfg, pairs, a.out_dir, patchsize=a.patchsize,
-                                     overlap=a.overlap, device=a.device)
+                                     overlap=a.overlap, device=a.device, mesh=mesh)
     for w in written:
         print("->", w)
     return written
 
 
-def _population(argv):
-    from ..compat.weights import load_popcorn_from_dda
-    from ..config import DataPaths
-    from ..infer.evaluator import load_member
-    from ..infer.pop_timeseries import run_population_timeseries
-    from .args import check_eval_args, eval_parser, model_config_from_args
+def _population_parser():
+    from .args import eval_parser
 
     p = eval_parser()
     p.prog = "python -m popcorn_tpu_torch.cli.timeseries population"
     p.add_argument("--steps", required=True)
     p.add_argument("--out-dir", required=True)
-    a = p.parse_args(argv)
-    check_eval_args(a)
+    return p
+
+
+def _population(argv):
+    from ..dist.launch import spawn_ranks, under_launcher
+    from ..dist.mesh import devices_for
+    from .args import n_ranks
+
+    a = _population_parser().parse_args(argv)
+    n = n_ranks(a)
+    if n > 1 and not under_launcher():
+        spawn_ranks(_population_rank, n, (list(argv),), devices=devices_for(a.device, n))
+        return None
+    return _population_run(a)
+
+
+def _population_rank(argv):
+    _population_run(_population_parser().parse_args(argv))
+
+
+def _population_run(a):
+    from ..compat.weights import load_popcorn_from_dda
+    from ..config import DataPaths
+    from ..infer.evaluator import load_member
+    from ..infer.pop_timeseries import run_population_timeseries
+    from .args import model_config_from_args
+    from .eval import eval_mesh
+
     mcfg = model_config_from_args(a)
     with open(a.steps) as f:
         steps_spec = json.load(f)
@@ -91,7 +118,7 @@ def _population(argv):
     records = run_population_timeseries(
         members, consts, mcfg, steps, a.out_dir, patchsize=a.patchsize,
         overlap=a.patch_overlap, fourseasons=a.fourseasons, patch_batch=a.patch_batch,
-        device=a.device,
+        device=a.device, mesh=eval_mesh(a), spatial=a.spatial, transport=a.transport,
     )
     for r in records:
         print(r)

@@ -354,13 +354,14 @@ class TrainConfig:
     skip_first: bool = False  # run epoch 0 but discard its updates
     max_samples: Optional[int] = None  # cap on weak samples drawn per epoch
     bucket_ladder: Tuple[int, ...] = (256, 512, 1024, 1536, 2048, 3072, 4096)
-    data_parallel: int = 1  # > 1 not ported: ROADMAP Queue 1 item 16
-    multihost: bool = False  # not ported: ROADMAP Queue 1 item 16
+    data_parallel: int = 1  # data-parallel ranks (dist/mesh.py)
+    multihost: bool = False  # ranks over several hosts (make_multihost_mesh)
     val_in_memory: bool = False  # preload validation rasters into host RAM
     watch_every: int = 0  # >0: log per-layer grad norms + param histograms
     device_feed: str = "auto"  # 'auto' | 'on' | 'off': the device-resident
     # training feed (data/device_weaksup.py), see train/trainer.py
     spatial_train: bool = False  # not ported: ROADMAP Queue 1 item 17
+    # (--spatial_train: halo context through the backward)
     grad_accum: int = 1  # microbatches per optimizer update
     transport: str = "exact"  # data-plane dtype of the float image
     # modalities ('exact' | 'bf16', data/feed.py::transport_cast)
@@ -370,16 +371,10 @@ class TrainConfig:
 
     def check(self) -> None:
         """Raise for options whose feature the port does not run yet."""
-        todo = [
-            (self.data_parallel > 1, f"data_parallel={self.data_parallel}", 16),
-            (self.multihost, "multihost", 16),
-            (self.spatial_train, "spatial_train", 17),
-        ]
-        for bad, what, item in todo:
-            if bad:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md Queue 1 item {item})"
-                )
+        if self.spatial_train:
+            raise NotImplementedError(
+                "spatial_train is not ported yet (ROADMAP.md Queue 1 item 17)"
+            )
 
 
 @dataclasses.dataclass
@@ -403,6 +398,7 @@ class EvalConfig:
     # and lossy — see data/feed.py::transport_cast
     debug_nans: bool = False  # raise at the first patch whose member
     # outputs hold a NaN (infer/sliding.py::run_sliding_inference)
+    spatial: bool = False  # whole-frame inference (infer/spatial.py)
 
     def __post_init__(self):
         # a degenerate pair (patchsize <= 2*overlap) would zero out the

@@ -39,8 +39,17 @@ host feed.
 Eligibility: same modality config across regions and the resident stack
 must fit ``hbm_budget_bytes`` (capped by the device's free memory).
 Construction raises ``Ineligible`` otherwise; the trainer falls back to
-the season-rotating form (``rotate=True``) or the host feed. The
-multi-device ``mesh=`` form waits for ROADMAP.md Queue 1 item 16.
+the season-rotating form (``rotate=True``) or the host feed.
+
+Data parallelism (``mesh=``, dist/mesh.py): every rank holds the whole
+resident stack (as the JAX package replicates it over its mesh) and draws
+the same global batches; each assembles only its own rows
+(``Mesh.batch_rows``) of a batch that splits over the data ranks, with
+the bucket shape, the geometric draw and the S2 dtype of the global
+batch, and marks it with 'rows' so ``shard_batch`` passes it through.
+Its tensors then equal the rank's rows of the host feed's batch. A
+batch that does not split (a last, smaller batch) comes whole, for the
+trainer to pad and split.
 """
 
 from __future__ import annotations
@@ -280,11 +289,7 @@ class DeviceWeaksupFeed(WeaksupFeed):
         **kw,
     ):
         super().__init__(datasets, **kw)
-        if mesh is not None:
-            raise Ineligible(
-                "the mesh-sharded device feed is not ported yet "
-                "(ROADMAP.md Queue 1 item 16)"
-            )
+        self._mesh = mesh if mesh is not None and mesh.n_data > 1 else None
         from ..infer.sliding import resolve_device
 
         # an adoptee lives where its donor's stacks do
@@ -774,6 +779,13 @@ class DeviceWeaksupFeed(WeaksupFeed):
             return batch
         return {k: _geometric(v, g) for k, v in batch.items()}
 
+    def _local_rows(self, n: int) -> Optional[np.ndarray]:
+        """This rank's rows of an n-item batch under a mesh, None when
+        the batch comes whole."""
+        if self._mesh is None or n % self._mesh.n_data:
+            return None
+        return self._mesh.batch_rows(n)
+
     def _make_batch(self, items: List[Dict], rng: np.random.Generator) -> Dict:
         hosts = [i for i, it in enumerate(items) if "dx" not in it]
         if len(hosts) == len(items):
@@ -796,10 +808,18 @@ class DeviceWeaksupFeed(WeaksupFeed):
             # 0 (S2: (1,C,hp,wp); S1: (n_orb,2,hp,wp)) — _epoch_batches
             # guarantees every device item in the batch drew that season
             season = np.zeros_like(season)
+        s2_float = self._s2_fractional(items, hosts)
+        rows = self._local_rows(len(items))
+        if rows is not None:
+            # this rank's rows; shape, draws and S2 dtype stay the global
+            # batch's
+            items = [items[i] for i in rows]
+            hosts = [i for i, it in enumerate(items) if "dx" not in it]
+            season, orb = season[rows], orb[rows]
         batch = self._assemble(items, bh, bw, season, orb, g)
 
-        if hosts:
-            batch = self._splice_host_items(batch, items, hosts, bh, bw, g)
+        if hosts or s2_float:
+            batch = self._splice_host_items(batch, items, hosts, bh, bw, g, s2_float)
         # -binp/-sinp segmentation policy (reference utils/utils.py:153-159)
         if self.building_input and self.segmentation_input:
             if "building_segmentation" not in batch and "building_counts" in batch:
@@ -819,9 +839,23 @@ class DeviceWeaksupFeed(WeaksupFeed):
             [it["census_idx"] for it in items], np.float32
         )
         batch["season"] = np.asarray([it["season"] for it in items], np.int32)
+        if rows is not None:
+            batch["rows"] = rows
         return self._finish_batch(batch, rng)
 
-    def _splice_host_items(self, batch, items, hosts, bh, bw, g):
+    def _s2_fractional(self, items, hosts) -> bool:
+        """Whether a host-healed item carries fractional S2 values, so the
+        batch's S2 ships float (the host feed's per-batch transport
+        dtype)."""
+        if not (self._mos and "S2" in self._mos and self._mos["S2"].dtype == torch.int16):
+            return False
+        for i in hosts:
+            a = items[i].get("S2")
+            if a is not None and not np.array_equal(a.astype(np.uint16), a):
+                return True
+        return False
+
+    def _splice_host_items(self, batch, items, hosts, bh, bw, g, s2_float):
         """Overwrite host-healed items' slots in the assembled device
         batch: pad to the bucket, apply the SAME geometric draw host-side
         (index permutations — bitwise identical to the on-device one),
@@ -831,15 +865,11 @@ class DeviceWeaksupFeed(WeaksupFeed):
         from ..aug.augment import apply_geometric
         from .feed import pad_item_to
 
-        if "S2" in batch and batch["S2"].dtype == torch.int16:
-            for i in hosts:
-                a = items[i].get("S2")
-                if a is not None and not np.array_equal(a.astype(np.uint16), a):
-                    s2 = widen_u16(batch["S2"]).float()
-                    # integers below 2^16 are finite: torch's cast rounds
-                    # them to nearest even, as bf16_bits does
-                    batch["S2"] = s2.to(torch.bfloat16) if self.transport == "bf16" else s2
-                    break
+        if s2_float and "S2" in batch and batch["S2"].dtype == torch.int16:
+            s2 = widen_u16(batch["S2"]).float()
+            # integers below 2^16 are finite: torch's cast rounds them to
+            # nearest even, as bf16_bits does
+            batch["S2"] = s2.to(torch.bfloat16) if self.transport == "bf16" else s2
         s2_u16 = "S2" in batch and batch["S2"].dtype == torch.int16
         for i in hosts:
             it = pad_item_to(items[i], bh, bw)

@@ -9,6 +9,12 @@ device stay there for the census (``DeviceCensus``); maps stitched on the
 host (a region above the device-stitch budget) take the host route
 (``convert_popmap_to_census``, ``adjust_map_to_census``), as the JAX
 package's Evaluator does.
+
+Under ranks (``mesh``, dist/mesh.py) every rank loads the members and
+runs its share of the eval; rank 0 alone holds the maps, writes the
+products and computes the census metrics. ``EvalConfig.spatial`` runs
+the whole-frame path (infer/spatial.py) over the mesh, or on this
+process's device, as the JAX package's Evaluator does.
 """
 
 from __future__ import annotations
@@ -36,7 +42,9 @@ from ..data.normalize import NormStats
 from ..io.geotiff import GeoTIFF
 from ..losses.metrics import get_test_metrics
 from ..utils.log import MetricsLogger, write_args
-from .sliding import resolve_device, run_sliding_inference
+from ..dist.mesh import resolve_device
+from .sliding import run_sliding_inference
+from .spatial import run_spatial_inference
 
 
 def load_member(path: str):
@@ -97,13 +105,16 @@ class Evaluator:
         consts=None,
         device="cuda",
         use_wandb: bool = False,
+        mesh=None,
     ):
         if not ecfg.checkpoints:
             raise ValueError("EvalConfig.checkpoints is empty")
         self.paths = paths
         self.mcfg = mcfg
         self.ecfg = ecfg
-        self.device = resolve_device(device)
+        self.mesh = mesh
+        self.device = resolve_device(mesh.device if mesh is not None else device)
+        self.is_root = mesh is None or mesh.is_root
 
         first_dir = os.path.dirname(os.path.abspath(ecfg.checkpoints[0]))
         self.experiment_folder = os.path.join(
@@ -112,10 +123,15 @@ class Evaluator:
                 time.strftime("%Y%m%d-%H%M%S"), len(ecfg.checkpoints)
             ),
         )
-        os.makedirs(self.experiment_folder, exist_ok=True)
-        # the model config carries ``quantize`` into the fold and the record
-        write_args(self.experiment_folder, {**dataclasses.asdict(mcfg), **dataclasses.asdict(ecfg)})
-        self.logger = MetricsLogger(self.experiment_folder, use_wandb=use_wandb)
+        if mesh is not None:
+            self.experiment_folder = mesh.broadcast_object(self.experiment_folder)
+        self.logger = None
+        if self.is_root:
+            os.makedirs(self.experiment_folder, exist_ok=True)
+            # the model config carries ``quantize`` into the fold and the record
+            write_args(self.experiment_folder,
+                       {**dataclasses.asdict(mcfg), **dataclasses.asdict(ecfg)})
+            self.logger = MetricsLogger(self.experiment_folder, use_wandb=use_wandb)
 
         self.members = []
         self.consts = consts
@@ -143,23 +159,36 @@ class Evaluator:
     def test_target(
         self, save: bool = True, full: bool = False, timings: Optional[Dict[str, Dict]] = None
     ) -> Dict[str, float]:
-        """Census metrics of every target region. ``timings``: a dict that
-        receives each region's sliding-window split
-        (infer/sliding.py::run_sliding_inference's ``timings``)."""
+        """Census metrics of every target region (rank 0; the other ranks
+        return {}). ``timings``: a dict that receives each region's
+        sliding-window split (infer/sliding.py::run_sliding_inference's
+        ``timings``; the whole-frame split with ``spatial``)."""
         out: Dict[str, float] = {}
         for ds in self.datasets:
-            # maps stitched on the device stay there: census aggregation and
-            # the dasymmetric adjustment run there, and only the maps that
-            # are written to GeoTIFF come to the host
-            maps = run_sliding_inference(
-                self.members, self.consts, self.mcfg, ds,
-                stats=self.stats, batch_size=self.ecfg.patch_batch,
-                progress=True, num_workers=self.ecfg.num_workers,
-                device=self.device, device_feed=self.ecfg.device_feed,
-                transport=self.ecfg.transport, return_device=True,
-                timings=None if timings is None else timings.setdefault(ds.region, {}),
-                debug_nans=self.ecfg.debug_nans,
-            )
+            if self.ecfg.spatial:
+                # whole-region path: exact model output, no stitch; the
+                # maps stay on the device for the census, as a device stitch's
+                maps = run_spatial_inference(
+                    self.members, self.consts, self.mcfg, ds, stats=self.stats, mesh=self.mesh,
+                    device=self.device, progress=True, transport=self.ecfg.transport,
+                    timings=None if timings is None else timings.setdefault(ds.region, {}),
+                    return_device=True,
+                )
+            else:
+                # maps stitched on the device stay there: census aggregation
+                # and the dasymmetric adjustment run there, and only the maps
+                # that are written to GeoTIFF come to the host
+                maps = run_sliding_inference(
+                    self.members, self.consts, self.mcfg, ds,
+                    stats=self.stats, batch_size=self.ecfg.patch_batch,
+                    progress=True, num_workers=self.ecfg.num_workers,
+                    device=self.device, device_feed=self.ecfg.device_feed,
+                    transport=self.ecfg.transport, return_device=True,
+                    timings=None if timings is None else timings.setdefault(ds.region, {}),
+                    debug_nans=self.ecfg.debug_nans, mesh=self.mesh,
+                )
+            if maps is None:  # a rank other than 0
+                continue
             is_dev = isinstance(maps["map"], torch.Tensor)
             writer = _MapWriter(ds) if save else None
             if save:
@@ -212,5 +241,6 @@ class Evaluator:
                 out.update(get_test_metrics(pred_c, gt_c, tag=f"AdjCensus_{ds.region}_{level}"))
             if writer is not None:
                 writer.join()
-        self.logger.log({f"{k}/targettest": v for k, v in out.items()}, 0)
+        if self.logger is not None:
+            self.logger.log({f"{k}/targettest": v for k, v in out.items()}, 0)
         return out

@@ -11,6 +11,10 @@ float). A time step is a PopMapData-layout region directory per date, so
 yearly mosaics can live side by side. The JAX package also draws
 ``totals.png`` when matplotlib imports; the port leaves the plot out (it
 imports no plotting library) and writes the table the plot is drawn from.
+With ``mesh=`` each step's eval splits over the ranks
+(run_sliding_inference(mesh=)); rank 0 writes the maps and the table.
+``spatial=True`` runs each step whole-frame (infer/spatial.py) instead of
+the stitched eval.
 """
 
 from __future__ import annotations
@@ -22,7 +26,8 @@ from typing import Dict, List, Sequence, Tuple
 from ..config import DataPaths, ModelConfig
 from ..data.dataset import PopulationDataset
 from ..data.normalize import NormStats
-from .sliding import resolve_device, run_sliding_inference
+from ..dist.mesh import resolve_device
+from .sliding import run_sliding_inference
 
 TOTALS_COLUMNS = ("label", "total_population", "total_std")
 
@@ -40,17 +45,18 @@ def run_population_timeseries(
     patch_batch: int = 1,
     mesh=None,
     device="cuda",
+    spatial: bool = False,
+    transport: str = "exact",
 ) -> List[Dict]:
     """steps: [(label, paths, region), ...] ordered in time.
 
     Writes <region>_predictions_<label>.tif (and _STD) per step and
-    totals.csv; returns the totals records."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (data-parallel patches) is not ported yet (ROADMAP.md Queue 1 item 16)"
-        )
-    dev = resolve_device(device)
-    os.makedirs(output_dir, exist_ok=True)
+    totals.csv; returns the totals records (rank 0; [] on the other ranks
+    of a ``mesh``)."""
+    dev = resolve_device(mesh.device if mesh is not None else device)
+    root = mesh is None or mesh.is_root
+    if root:
+        os.makedirs(output_dir, exist_ok=True)
     stats = NormStats(device=dev)
     records = []
     for label, paths, region in steps:
@@ -59,17 +65,29 @@ def run_population_timeseries(
             s1=mcfg.s1, s2=mcfg.s2, nir=mcfg.nir, fourseasons=fourseasons,
         )
         try:
-            maps = run_sliding_inference(members, consts, mcfg, ds, stats=stats,
-                                         batch_size=patch_batch, device=dev)
-            ds.save(maps["map"], output_dir, tag=f"_{label}")
-            ds.save(maps["map_std"], output_dir, tag=f"_{label}_STD")
+            if spatial:
+                from .spatial import run_spatial_inference
+
+                maps = run_spatial_inference(members, consts, mcfg, ds, stats=stats,
+                                             transport=transport, mesh=mesh, device=dev)
+            else:
+                maps = run_sliding_inference(members, consts, mcfg, ds, stats=stats,
+                                             batch_size=patch_batch, device=dev, mesh=mesh,
+                                             transport=transport)
+            if maps is not None:
+                ds.save(maps["map"], output_dir, tag=f"_{label}")
+                ds.save(maps["map_std"], output_dir, tag=f"_{label}_STD")
         finally:
             ds.close()
+        if maps is None:  # a rank other than 0
+            continue
         records.append({
             "label": label,
             "total_population": float(maps["map"].sum()),
             "total_std": float(maps["map_std"].sum()),
         })
+    if not root:
+        return records
     with open(os.path.join(output_dir, "totals.csv"), "w", newline="") as f:
         w = csv.writer(f, lineterminator="\n")
         w.writerow(TOTALS_COLUMNS)

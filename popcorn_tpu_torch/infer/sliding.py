@@ -20,6 +20,14 @@ the device, else from the host InferenceFeed:
     there, with an int32 visit count, as the JAX package's host stitch
     does (popcorn_tpu/infer/sliding.py:482-532, 934-940).
 
+Ranks (``mesh``, dist/mesh.py): the patches split over the 'data' ranks
+(rank d takes every n_data-th patch) and the members over the 'ensemble'
+ranks (rank e takes members e*m .. e*m+m-1 of ceil(n/n_ensemble) = m;
+slots past the last member, the JAX package's padded slots, hold none).
+Each rank folds its (patch, member) pairs into its own accumulators, and
+rank 0 sums them (one reduce a map) and finalizes; the other ranks return
+None. The sums add the same terms as one device's, in another order.
+
 Quantized eval: with ``quantize`` int8s/w4a8 each member's static int8
 scales are calibrated once, on the first patch batch of the region, and
 kept for the rest of it (popcorn_tpu/infer/sliding.py:374-416); with
@@ -39,6 +47,7 @@ from ..config import ModelConfig
 from ..data.dataset import PopulationDataset
 from ..data.feed import InferenceFeed, host_tensor, widen_u16
 from ..data.normalize import NormStats, normalize_and_assemble
+from ..dist.mesh import resolve_device
 from ..nn.popcorn import (
     builder_quantized,
     calibrate_member_scales,
@@ -57,19 +66,6 @@ _PREP_KEYS = ("S2", "S1", "VIIRS", "building_counts")
 # the five float32 country-scale maps stay on the device below this many
 # bytes (popcorn_tpu/infer/sliding.py:537-538)
 _DEVICE_STITCH_BUDGET_BYTES = 6e9
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on: CUDA unless the caller asks for
-    the CPU. Asking for CUDA without a card raises; nothing drops to the
-    CPU silently."""
-    dev = torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            "CUDA was requested but torch.cuda.is_available() is False; "
-            "pass device='cpu' to run the plain versions on the CPU"
-        )
-    return dev
 
 
 def make_patch_forward(mcfg: ModelConfig, consts: Tree, stats: NormStats, n_members: int):
@@ -188,29 +184,34 @@ class StitchAccumulators:
             acc[x : x + ph, y : y + pw] += res[k][b].to(acc.dtype)
 
     def finalize(self) -> Dict[str, torch.Tensor]:
-        """Visit-count averaging + sum-of-squares std (run_eval.py:137-154).
+        return finalize_maps(self.accs)
 
-        Reproduces the reference's div_mask = count > 1: pixels visited
-        once keep their raw sum and get std 0."""
-        a = self.accs
-        cnt_i = a["count"].to(torch.int32)
-        cnt = cnt_i.float()
-        div = cnt_i > 1
-        safe = torch.where(div, cnt, torch.ones_like(cnt))
-        out = {"count": cnt_i}
-        for src, sq, mean_k, std_k in (
-            ("dense_sum", "dense_sq", "map", "map_std"),
-            ("scale_sum", "scale_sq", "scale", "scale_std"),
-        ):
-            mean = torch.where(div, a[src] / safe, a[src])
-            var = torch.where(
-                div,
-                (a[sq] - mean**2 * cnt) / torch.clamp(cnt - 1.0, min=1.0),
-                torch.zeros_like(cnt),
-            )
-            out[mean_k] = mean
-            out[std_k] = torch.sqrt(torch.clamp(var, min=0.0))
-        return out
+
+def finalize_maps(a: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """Visit-count averaging + sum-of-squares std (run_eval.py:137-154) of
+    the five accumulators, on their device.
+
+    Reproduces the reference's div_mask = count > 1: pixels visited once
+    keep their raw sum and get std 0. The whole-frame path
+    (infer/spatial.py) passes its member x season count as a constant map."""
+    cnt_i = a["count"].to(torch.int32)
+    cnt = cnt_i.float()
+    div = cnt_i > 1
+    safe = torch.where(div, cnt, torch.ones_like(cnt))
+    out = {"count": cnt_i}
+    for src, sq, mean_k, std_k in (
+        ("dense_sum", "dense_sq", "map", "map_std"),
+        ("scale_sum", "scale_sq", "scale", "scale_std"),
+    ):
+        mean = torch.where(div, a[src] / safe, a[src])
+        var = torch.where(
+            div,
+            (a[sq] - mean**2 * cnt) / torch.clamp(cnt - 1.0, min=1.0),
+            torch.zeros_like(cnt),
+        )
+        out[mean_k] = mean
+        out[std_k] = torch.sqrt(torch.clamp(var, min=0.0))
+    return out
 
 
 def _upload(
@@ -443,7 +444,8 @@ def run_sliding_inference(
     return_device: bool = False,
     timings: Optional[Dict[str, float]] = None,
     debug_nans: bool = False,
-) -> Dict[str, Any]:
+    mesh=None,
+) -> Optional[Dict[str, Any]]:
     """Full-region ensemble inference -> stitched mean/std maps.
 
     members/consts: parameter trees of torch tensors (moved to ``device``).
@@ -484,22 +486,49 @@ def run_sliding_inference(
     debug_nans: raise FloatingPointError at the first patch whose member
     outputs hold a NaN, naming it (what jax_debug_nans stops the JAX
     eval on).
+
+    mesh: this rank's place among the ranks that share the eval (module
+    docstring); ``device`` is then the mesh's. Under more than one rank
+    the device feed is off (``device_feed='on'`` raises) and static int8
+    takes the dynamic kernels, as in the JAX package; rank 0 returns the
+    maps, the others None.
     """
+    import dataclasses
+
     from ..compat.weights import to_torch
 
     if device_feed not in ("auto", "on", "off"):
         raise ValueError(f"device_feed={device_feed!r}: 'auto', 'on' or 'off'")
-    dev = resolve_device(device)
+    ranked = mesh is not None and mesh.size > 1
+    if ranked and device_feed == "on":
+        raise ValueError(
+            "device_feed='on' requires a single-process run with device-resident "
+            "stitch accumulators (mesh=None); use device_feed='auto'"
+        )
+    dev = mesh.device if mesh is not None else resolve_device(device)
     host = stitch_on_host(device_stitch, dataset.shape())
     if device_feed == "on" and host:
         raise ValueError(
             "device_feed='on' requires device-resident stitch accumulators "
             "(the region under the device-stitch budget); use device_feed='auto'"
         )
-    dev_feed = not host and (
+    dev_feed = not host and not ranked and (
         device_feed == "on"
         or (device_feed == "auto" and dataset.mode == "test" and bool(dataset.patchsize))
     )
+    indices = None  # every patch
+    members = list(members)
+    if ranked:
+        if quantize_static_int8(mcfg):
+            # popcorn_tpu/infer/sliding.py:381-383: mesh-sharded folds keep
+            # the dynamic int8 kernels (the calibrated scales do not
+            # thread through the sharded fold)
+            mcfg = dataclasses.replace(mcfg, quantize="int8")
+        per = -(-len(members) // mesh.n_ensemble)
+        members = members[mesh.ensemble_index * per:(mesh.ensemble_index + 1) * per]
+        indices = list(range(len(dataset.patch_indices)))[mesh.data_index::mesh.n_data]
+        if not members:
+            indices = []
     stats = stats if stats is not None and stats.device == dev else NormStats(device=dev)
     member_params = [to_torch(p, dev) for p in members]
     consts = to_torch(consts, dev)
@@ -512,7 +541,7 @@ def run_sliding_inference(
         timings.setdefault("n_patches", 0)
     t_run0 = time.perf_counter()
 
-    remaining, n_seen = None, 0  # None: every patch through the host feed
+    remaining, n_seen = indices, 0  # None: every patch through the host feed
     if dev_feed:
         remaining, n_seen = _run_device_feed_pass(
             dataset, fwd, member_params, acc, dev, timings=timings, progress=progress,
@@ -559,6 +588,11 @@ def run_sliding_inference(
             n_seen += 1
         cur, cur_dev = nxt, nxt_dev
     t_fin0 = time.perf_counter()
+    if ranked:
+        for a in acc.accs.values():
+            mesh.reduce_to_root(a)
+        if not mesh.is_root:
+            return None
     maps = acc.finalize()
     if host or not return_device:
         maps = {k: v.cpu().numpy() for k, v in maps.items()}

@@ -10,9 +10,11 @@ frozen DDA built-up probability for each orbit, average them, and write
 The score is nn/popcorn.py::create_building_score in the model's compute
 dtype on ``device`` (the card by default): on CUDA every DoubleConv of the
 extractor is kernel A and every Up block kernel B (6 A and 4 B a call).
-Frames larger than the patch are scored in overlap-stitched patches. The
-JAX package's ``mesh=`` (one spatially partitioned call over a device
-mesh, infer/spatial.py) is ROADMAP.md Queue 1 item 17 and raises here.
+Frames larger than the patch are scored in overlap-stitched patches.
+With ``mesh=`` each frame is scored whole instead (infer/spatial.py, its
+rows split over the mesh's data ranks), as with the JAX package's mesh:
+no patches, and a true score in the frame's outer ring, which the patch
+stitch leaves 0. Only rank 0 writes the GeoTIFFs.
 """
 
 from __future__ import annotations
@@ -84,13 +86,6 @@ def _read_frame(path: str, bands) -> np.ndarray:
     return arr
 
 
-def _no_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (spatially partitioned frames) is not ported yet (ROADMAP.md Queue 1 item 17)"
-        )
-
-
 def make_score_fn(consts: Tree, mcfg: ModelConfig, stats: Optional[NormStats] = None,
                   device="cuda"):
     """fn(s2, s1) -> (H, W) float32 numpy built-up probability of one HWC
@@ -129,8 +124,13 @@ def builtup_map(
 ) -> np.ndarray:
     """Built-up probability for one frame (HWC inputs): one call when the
     frame fits the patch, else overlap-stitched patches
-    (``patch_grid(fourseasons=False)``, halo-excluding validity masks)."""
-    _no_mesh(mesh)
+    (``patch_grid(fourseasons=False)``, halo-excluding validity masks).
+    With ``mesh`` the whole frame in one call (infer/spatial.py::
+    spatial_builtup_map; ``_score_fn`` then from make_spatial_builtup)."""
+    if mesh is not None:
+        from .spatial import spatial_builtup_map
+
+        return spatial_builtup_map(consts, mcfg, s2, s1, mesh, stats=stats, _fn=_score_fn)
     fn = _score_fn or make_score_fn(consts, mcfg, stats, device)
     h, w = s2.shape[:2]
     if h <= patchsize and w <= patchsize:
@@ -162,10 +162,18 @@ def run_builtup_timeseries(
 ) -> List[str]:
     """Write BuiltUp_<date>.tif per (S2, S1desc, S1asc) triple, the mean of
     the available orbits' probabilities (reference intent :340-372), with
-    the S2 frame's georeferencing. Returns the paths written."""
-    _no_mesh(mesh)
-    os.makedirs(output_dir, exist_ok=True)
-    fn = make_score_fn(consts, mcfg, stats, device)
+    the S2 frame's georeferencing. Returns the paths written. ``mesh``:
+    each whole frame over the mesh's data ranks instead of patches (see
+    builtup_map); rank 0 writes."""
+    root = mesh is None or mesh.is_root
+    if root:
+        os.makedirs(output_dir, exist_ok=True)
+    if mesh is not None:
+        from .spatial import make_spatial_builtup
+
+        fn = make_spatial_builtup(consts, mcfg, mesh, stats)
+    else:
+        fn = make_score_fn(consts, mcfg, stats, device)
     s2_bands = (3, 2, 1, 4) if mcfg.nir else (3, 2, 1)
     written = []
     for s2f, descf, ascf in pairs:
@@ -177,10 +185,11 @@ def run_builtup_timeseries(
             s1 = _read_frame(s1f.path, (1, 2))
             if s1.shape[:2] != s2.shape[:2]:
                 raise ValueError(f"S1 {s1f.path} and S2 {s2f.path} shapes differ")
-            scores.append(builtup_map(consts, mcfg, s2, s1, patchsize=patchsize,
-                                      overlap=overlap, _score_fn=fn))
+            scores.append(builtup_map(consts, mcfg, s2, s1, stats=stats, patchsize=patchsize,
+                                      overlap=overlap, mesh=mesh, _score_fn=fn))
         avg = sum(scores) / float(len(scores))
         out = os.path.join(output_dir, f"BuiltUp_{s2f.date.isoformat()}.tif")
-        write_geotiff(out, avg, template=s2f.path)
+        if root:
+            write_geotiff(out, avg, template=s2f.path)
         written.append(out)
     return written

@@ -69,6 +69,12 @@ def build_cache(
     out = cache_path(src_path)
     if not force and open_cache(src_path) is not None:
         return out
+    # the source's stat BEFORE the decode: a source replaced during the
+    # build then no longer matches the meta, so its stale sidecar never
+    # validates (the JAX package's copy stats after the decode)
+    meta = _src_meta(src_path)
+    if os.path.exists(_meta_path(src_path)):
+        os.remove(_meta_path(src_path))
     tmp = out + ".tmp"
     with GeoTIFF(src_path) as g:
         mm = np.lib.format.open_memmap(
@@ -84,10 +90,10 @@ def build_cache(
         finally:
             del mm
     os.replace(tmp, out)
-    # meta last: a crash before this point leaves no meta, so a stale
-    # pre-existing sidecar can never validate against a fresher source stat
+    # meta last: a crash before this point leaves no meta, so a sidecar
+    # never validates without one
     with open(_meta_path(src_path), "w") as f:
-        json.dump(_src_meta(src_path), f)
+        json.dump(meta, f)
     return out
 
 

@@ -41,7 +41,7 @@ one plain engine the unfused route stands for both.
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import Any, Callable, Dict, Optional
 
 import torch
 
@@ -169,6 +169,7 @@ def sparsity_mask(
     census_idx: torch.Tensor,
     *,
     occupancy: bool,
+    any_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> torch.Tensor:
     """The training sparsity mask (model/popcorn.py:361-377;
     popcorn_tpu/nn/popcorn.py::sparsity_mask).
@@ -180,7 +181,10 @@ def sparsity_mask(
     and columns are ``torch.randperm(n, generator=generator)[:60]``, drawn
     on the generator's device (the trainer's is on the CPU) and moved to
     the mask's; JAX's draw cannot be matched bit for bit, so tests inject
-    its mask through ``popcorn_forward(mask=...)``."""
+    its mask through ``popcorn_forward(mask=...)``. Under data parallelism
+    ``any_fn`` turns this rank's "is the mask empty" into the global
+    batch's (every rank draws the same lattice from the same generator
+    state)."""
     admin_sel = admin_mask == census_idx[:, None, None]
     if building_counts is not None and building_counts.dim() == 4:
         building_counts = building_counts[..., 0]
@@ -195,7 +199,8 @@ def sparsity_mask(
     cols[yi] = True
     lattice = (rows[:, None] & cols[None, :]).to(m.device)
     m = (m | lattice[None]) & admin_sel
-    return torch.where(m.any(), m, admin_sel)
+    nonempty = m.any() if any_fn is None else any_fn(m.any())
+    return torch.where(nonempty, m, admin_sel)
 
 
 @torch.no_grad()
@@ -222,6 +227,7 @@ def popcorn_forward(
     generator: Optional[torch.Generator] = None,
     mask: Optional[torch.Tensor] = None,
     scales: Optional[Tree] = None,
+    mask_any: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Dict[str, Any]:
     """Full POPCORN forward pass (model/popcorn.py:100-193).
 
@@ -247,6 +253,7 @@ def popcorn_forward(
     ``mask`` (B,H,W) bool is given. ``scales``: the
     member's static int8 scales (``calibrate_member_scales``), which the
     'int8s'/'w4a8' eval uses where it applies (module docstring).
+    ``mask_any``: ``sparsity_mask``'s ``any_fn`` (data-parallel training).
 
     Returns {'popcount': (B,), 'popdensemap': (B,H,W), 'scale': (B,H,W)
     or None, 'scale_abs_mean': mean |scale| (over the mask when sparse) or
@@ -270,7 +277,7 @@ def popcorn_forward(
             raise ValueError("sparse=True requires a generator or a precomputed mask")
         mask = sparsity_mask(
             generator, building_counts, inputs["admin_mask"], inputs["census_idx"],
-            occupancy=cfg.occupancy_model,
+            occupancy=cfg.occupancy_model, any_fn=mask_any,
         )
     if not sparse:
         mask = None

@@ -20,6 +20,21 @@ torch.optim.Adam would skip for a None gradient.
 One step: photometric augmentation -> normalization -> sparse-masked
 POPCORN forward -> census loss * lam_weak -> backward -> update, with the
 memory-tier flags as arguments and TF32 off (nn/ops.py::float32_exact).
+
+Data parallelism (``mesh``, dist/mesh.py): each rank holds its rows of
+the global batch (``shard_batch``) and computes the GLOBAL loss: the
+popcounts, targets and the scale regulariser's masked sums of every rank
+are gathered, with the gradient flowing through this rank's own terms
+only (``Mesh.gather_rows_with_grad``, ``Mesh.sum_with_grad``), so a
+rank's gradient is its share of the single-device gradient (for a mean
+loss, its own loss scaled by its share of the global valid count) and
+padded rows ('valid' False, ``pad_batch_to_multiple``) weigh nothing.
+One all-reduce over a flat buffer of the trainable leaves then sums the
+shares, after ``grads`` and before ``Optimizer.update``, so the
+global-norm clip sees the global gradient. Leaves frozen by a memory tier
+stay zero and out of the reduce. The sparsity mask's empty-batch test is
+the global batch's (``sparsity_mask(any_fn=)``), and the logged values
+are the global batch's, as in the JAX package's sharded step.
 """
 
 from __future__ import annotations
@@ -173,22 +188,54 @@ class TrainStep:
     unet_no_grad, collect_watch, mask) -> (params, opt_state, aux)``;
     ``step.grads(...)`` returns the averaged gradients and aux without the
     update. batch: {'S2','S1' (B,H,W,C) raw, 'admin_mask' (B,H,W),
-    'census_idx','y' (B,), 'photometric' (4,)} as tensors on one device.
-    ``mask`` (B,H,W) bool replaces the drawn sparsity mask."""
+    'census_idx','y' (B,), 'photometric' (4,)} as tensors on one device,
+    and under a ``mesh`` optionally 'valid' (B,) bool: this rank's rows of
+    the global batch (module docstring). ``mask`` (B,H,W) bool replaces
+    the drawn sparsity mask."""
 
     def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, consts: Tree,
-                 stats: NormStats, optimizer: Optimizer):
+                 stats: NormStats, optimizer: Optimizer, mesh=None):
         self.mcfg, self.tcfg, self.consts = mcfg, tcfg, consts
         self.stats, self.optimizer = stats, optimizer
+        self.mesh = mesh if mesh is not None and mesh.n_data > 1 else None
+        self.unused: frozenset = frozenset()  # leaves of the last grads with no gradient
+
+    def _global_any(self, t: torch.Tensor) -> torch.Tensor:
+        r = self.mesh.all_reduce(t.reshape(1).to(torch.int32), op=torch.distributed.ReduceOp.MAX)
+        return r[0] > 0
+
+    def _global_terms(self, out, batch):
+        """The global batch's popcounts and targets (valid rows) and scale
+        regulariser, differentiable through this rank's terms."""
+        mesh = self.mesh
+        pc = out["popcount"]
+        valid = batch.get("valid")
+        v = (torch.ones(pc.shape[0], dtype=torch.bool, device=pc.device) if valid is None
+             else torch.as_tensor(valid, device=pc.device).bool())
+        keep = mesh.all_gather(v.to(torch.uint8)).bool()
+        popcount = mesh.gather_rows_with_grad(pc)[keep]
+        y = mesh.all_gather(torch.as_tensor(batch["y"], device=pc.device).float())[keep]
+        sam = None
+        if out["scale"] is not None:
+            w = out["sparsity_mask"] & v[:, None, None]
+            num = mesh.sum_with_grad(torch.sum(torch.abs(out["scale"]) * w))
+            den = mesh.all_reduce(torch.sum(w).float().reshape(1))[0]
+            sam = num / torch.clamp(den, min=1)
+        return popcount, y, sam
 
     def loss_fn(self, params, batch, generator, encoder_no_grad, unet_no_grad, mask):
         out = popcorn_forward(
             params, self.consts, _model_inputs(self.mcfg, self.stats, batch, True),
             self.mcfg, train=True, padding=False, encoder_no_grad=encoder_no_grad,
             unet_no_grad=unet_no_grad, sparse=True, generator=generator, mask=mask,
+            mask_any=None if self.mesh is None else self._global_any,
         )
+        if self.mesh is None:
+            popcount, y, sam = out["popcount"], batch["y"], out["scale_abs_mean"]
+        else:
+            popcount, y, sam = self._global_terms(out, batch)
         loss, aux = get_loss(
-            out["popcount"], batch["y"], scale_abs_mean=out["scale_abs_mean"],
+            popcount, y, scale_abs_mean=sam,
             loss=self.tcfg.loss, lam=self.tcfg.lam,
             scale_regularization=self.tcfg.scale_regularization, tag="weak",
         )
@@ -203,6 +250,7 @@ class TrainStep:
         tparams = tree_unflatten((p, q) for (p, _), q in zip(flat, leaves))
         loss, aux = self.loss_fn(tparams, batch, generator, enc, unet, mask)
         grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        self.unused = frozenset(p for (p, _), d in zip(flat, grads) if d is None)
         # a frozen leaf's gradient is zero, not None (see the module doc)
         grads = [torch.zeros_like(q) if d is None else d for q, d in zip(leaves, grads)]
         aux = {k: v.detach() for k, v in aux.items()}
@@ -227,7 +275,8 @@ class TrainStep:
                 # split ONLY the per-sample keys: the length-4 photometric
                 # vector must reach every microbatch whole (B == 4 would
                 # otherwise look per-sample)
-                mbatch = {k: (v[sl] if k in PER_SAMPLE_KEYS else v) for k, v in batch.items()}
+                mbatch = {k: (v[sl] if k in PER_SAMPLE_KEYS or k == "valid" else v)
+                          for k, v in batch.items()}
                 g, aux = self._value_and_grad(
                     params, mbatch, generator, encoder_no_grad, unet_no_grad,
                     None if mask is None else mask[sl],
@@ -244,10 +293,29 @@ class TrainStep:
         }
         return grads, aux
 
+    def reduce_grads(self, grads: Tree) -> Tree:
+        """The sum of every rank's gradient shares: one all-reduce over a
+        flat buffer of the leaves that had a gradient in the last ``grads``
+        (frozen leaves stay zero and out of it)."""
+        flat = tree_flatten(grads)
+        live = [g for p, g in flat if p not in self.unused]
+        if not live:
+            return grads
+        buf = self.mesh.all_reduce(torch.cat([g.reshape(-1) for g in live]))
+        out, off = [], 0
+        for p, g in flat:
+            if p not in self.unused:
+                g = buf[off:off + g.numel()].view_as(g)
+                off += g.numel()
+            out.append((p, g))
+        return tree_unflatten(out)
+
     def __call__(self, params, opt_state, batch, generator=None, *, encoder_no_grad=False,
                  unet_no_grad=False, collect_watch=False, mask=None):
         grads, aux = self.grads(params, batch, generator, encoder_no_grad=encoder_no_grad,
                                 unet_no_grad=unet_no_grad, mask=mask)
+        if self.mesh is not None:
+            grads = self.reduce_grads(grads)
         if collect_watch:
             # per-layer gradient norms for the wandb.watch equivalent
             # (reference run_train.py:75)
@@ -259,8 +327,8 @@ class TrainStep:
 
 
 def make_train_step(mcfg: ModelConfig, tcfg: TrainConfig, consts: Tree,
-                    stats: NormStats, optimizer: Optimizer) -> TrainStep:
-    return TrainStep(mcfg, tcfg, consts, stats, optimizer)
+                    stats: NormStats, optimizer: Optimizer, mesh=None) -> TrainStep:
+    return TrainStep(mcfg, tcfg, consts, stats, optimizer, mesh)
 
 
 def make_eval_popcount(mcfg: ModelConfig, consts: Tree, stats: NormStats) -> Callable:

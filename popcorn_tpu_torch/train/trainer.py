@@ -8,9 +8,18 @@ device-resident feed (data/device_weaksup.py) when the region's stacks
 fit, else its season-rotating form when the measured cost gate
 (data/feed_select.py) prefers it, else the host ``WeaksupFeed``, whose
 batches are uploaded pinned and asynchronously one batch ahead of the step
-that uses them. Not ported yet: the multi-device mesh / spatial training
-(ROADMAP.md Queue 1 items 16 and 17); ``TrainConfig.check`` raises for
-them.
+that uses them.
+
+Data parallelism (``data_parallel > 1`` or ``multihost``, the JAX
+trainer's mesh): this process is one rank of a (data,) grid
+(dist/mesh.py). Every rank reads the same global batches (the feeds are
+deterministic), pads one that does not split (``pad_batch_to_multiple``),
+uploads only its rows (``shard_batch``; the device feed assembles only
+them) and runs the data-parallel step (train/state.py). Rank 0 broadcasts
+the parameters first, so replicas start equal; the logged popcounts and
+targets are gathered; only rank 0 writes logs, checkpoints and maps.
+Not ported yet: spatial training (``spatial_train``, ROADMAP.md Queue 1
+item 17); ``TrainConfig.check`` raises for it.
 """
 
 from __future__ import annotations
@@ -38,6 +47,15 @@ from ..data.device_weaksup import DeviceWeaksupFeed, Ineligible, resident_layout
 from ..data.feed import WeaksupFeed
 from ..data.feed_select import gate_mode, gate_report, gather_gate_inputs, prefer_rotation
 from ..data.normalize import NormStats
+from ..dist.mesh import (
+    devices_for,
+    fetch_to_host,
+    make_mesh,
+    make_multihost_mesh,
+    pad_batch_to_multiple,
+    replicate,
+    shard_batch,
+)
 from ..infer.sliding import _upload, resolve_device, run_sliding_inference
 from ..io.geotiff import GeoTIFF
 from ..losses.losses import get_loss, r2
@@ -57,8 +75,21 @@ from .state import (
     tree_flatten,
 )
 
-TRAIN_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx", "y", "photometric")
+TRAIN_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx", "y",
+              "photometric", "valid")
 VAL_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx")
+# the keys of a training batch that carry one row per sample
+SHARD_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx", "y")
+
+
+class _NoLogger:
+    """The logger of a rank other than 0: rank 0 writes the records."""
+
+    def log(self, metrics, step):
+        pass
+
+    def log_histogram(self, name, values, step, bins=64):
+        pass
 
 
 class Trainer:
@@ -85,9 +116,31 @@ class Trainer:
         self.inference_overlap = inference_overlap
         self.test_patch_batch = test_patch_batch
 
+        # data-parallel ranks: the batch's rows split over 'data', the
+        # parameters replicated (module docstring). Created before the feed
+        # so the device-resident feed can assemble this rank's rows.
+        self.mesh = None
+        if tcfg.multihost or tcfg.data_parallel > 1:
+            n = tcfg.data_parallel if tcfg.data_parallel > 1 else None
+            devs = devices_for(self.device)
+            self.mesh = (make_multihost_mesh(n, devices=devs) if tcfg.multihost
+                         else make_mesh(n, devices=devs))
+            if tcfg.weak_batch_size % self.mesh.n_data:
+                raise ValueError(
+                    f"weak_batch_size ({tcfg.weak_batch_size}) must be divisible "
+                    f"by the data mesh size ({self.mesh.n_data})"
+                )
+            self.device = self.mesh.device
+        self.is_root = self.mesh is None or self.mesh.is_root
+
         args = {**dataclasses.asdict(mcfg), **dataclasses.asdict(tcfg)}
-        self.experiment_folder, _, _ = new_log(tcfg.save_dir, args)
-        self.logger = MetricsLogger(self.experiment_folder, use_wandb=use_wandb)
+        if self.is_root:
+            self.experiment_folder, _, _ = new_log(tcfg.save_dir, args)
+            self.logger = MetricsLogger(self.experiment_folder, use_wandb=use_wandb)
+        else:
+            self.experiment_folder, self.logger = None, _NoLogger()
+        if self.mesh is not None:
+            self.experiment_folder = self.mesh.broadcast_object(self.experiment_folder)
 
         # datasets ------------------------------------------------------------
         split = "train" if tcfg.weak_validation else "all"
@@ -129,11 +182,16 @@ class Trainer:
         # the chosen feed ('resident', 'rotating' or 'host') and the cost
         # gate's report when it ran
         self.feed, self.feed_choice, self.gate_report = None, "host", None
-        if tcfg.device_feed != "off":
+        if tcfg.device_feed == "on" and tcfg.multihost:
+            # the JAX trainer's gate: cross-host residency is unproven
+            raise Ineligible("--device_feed on requires a single-host run (multihost "
+                             "batches are not assembled on the device)")
+        if tcfg.device_feed != "off" and not tcfg.multihost:
             # device-resident data plane: mosaics upload once, batch
             # assembly (crop + mask + geometric augs) runs on the device
             try:
-                self.feed = DeviceWeaksupFeed(self.train_datasets, device=self.device, **feed_kw)
+                self.feed = self._agreed(lambda: DeviceWeaksupFeed(
+                    self.train_datasets, device=self.device, mesh=self.mesh, **feed_kw))
                 self.feed_choice = "resident"
                 print("Training feed: device-resident mosaics")
             except Ineligible as e:
@@ -155,15 +213,17 @@ class Trainer:
             params, consts = load_popcorn_from_dda(mcfg, head_seed=tcfg.seed)
         else:
             params, consts = init_popcorn(tcfg.seed, mcfg)
-        self.params = to_torch(params, self.device)
-        self.consts = to_torch(consts, self.device)
+        # replicas start equal: rank 0's parameters on every rank
+        self.params = replicate(to_torch(params, self.device), self.mesh)
+        self.consts = replicate(to_torch(consts, self.device), self.mesh)
         n_params = sum(v.numel() for _, v in tree_flatten(self.params))
         print(f"Model POPCORN; #Effective Params trainable: {n_params}")
 
         self.stats = NormStats(device=self.device)
         self.optimizer = make_optimizer(tcfg)
         self.opt_state = self.optimizer.init(self.params)
-        self.step_fn = make_train_step(mcfg, tcfg, self.consts, self.stats, self.optimizer)
+        self.step_fn = make_train_step(mcfg, tcfg, self.consts, self.stats, self.optimizer,
+                                       mesh=self.mesh)
         self.eval_popcount = make_eval_popcount(mcfg, self.consts, self.stats)
 
         self.info = {"epoch": 0, "iter": 0, "sampleitr": 0}
@@ -177,6 +237,21 @@ class Trainer:
 
         if resume is not None:
             self.resume(resume)
+
+    def _agreed(self, build):
+        """``build()``'s feed when every rank built one, else Ineligible on
+        every rank (free device memory differs between ranks that share a
+        card), so all ranks take the same feed."""
+        feed, err = None, None
+        try:
+            feed = build()
+        except Ineligible as e:
+            err = e
+        if self.mesh is not None and not self.mesh.all_true(feed is not None):
+            raise err or Ineligible("the device feed does not fit on every rank")
+        if err is not None:
+            raise err
+        return feed
 
     def _maybe_rotating_feed(self, feed_kw, reason) -> DeviceWeaksupFeed:
         """The season-rotating device feed, or Ineligible when its slice
@@ -201,16 +276,23 @@ class Trainer:
                                    swap_bytes=lay["slice_bytes"] * len(lay["seasons"]),
                                    device=self.device)
             self.gate_report = gate_report(g)
-            if not prefer_rotation(g):
+            prefer = prefer_rotation(g)
+            if self.mesh is not None:
+                prefer = self.mesh.broadcast_object(prefer)  # rank 0's measurement decides
+            if not prefer:
                 raise Ineligible("cost gate picked host feed: " + self.gate_report)
             print(f"Feed cost gate: {self.gate_report} -> rotation")
-        feed = DeviceWeaksupFeed(self.train_datasets, rotate=True, device=self.device, **feed_kw)
+        feed = self._agreed(lambda: DeviceWeaksupFeed(
+            self.train_datasets, rotate=True, device=self.device, mesh=self.mesh, **feed_kw))
         print(f"Training feed: season-rotating device residency (full stack ineligible: {reason})")
         return feed
 
     # -- persistence ---------------------------------------------------------
 
-    def save_model(self, prefix: str = "last") -> str:
+    def save_model(self, prefix: str = "last") -> Optional[str]:
+        """Write the checkpoint (rank 0 only: the replicas are equal)."""
+        if not self.is_root:
+            return None
         path = os.path.join(self.experiment_folder, f"{prefix}_model.pth")
         ckpt.save_checkpoint(
             path, self.params, self.consts, self.opt_state,
@@ -229,9 +311,12 @@ class Trainer:
     # -- training ------------------------------------------------------------
 
     def _tier_flags(self, batch) -> Optional[Dict[str, bool]]:
-        """Memory-tiered gradient freezing (run_train.py:190-198)."""
+        """Memory-tiered gradient freezing (run_train.py:190-198), by the
+        global batch's pixels."""
         some = "S2" if "S2" in batch else "S1"
         b, h, w = batch[some].shape[:3]
+        if "rows" in batch:  # this rank's rows of a global batch
+            b *= self.mesh.n_data
         num_pix = b * h * w
         enc, unet = False, False
         if num_pix > self.tcfg.limit1:
@@ -248,10 +333,16 @@ class Trainer:
         overlaps compute. Tier-skipped batches are dropped before their
         upload."""
         prev = None
+        n_micro = max(1, int(self.tcfg.grad_accum))
         for batch in self.feed.epoch(epoch):
             flags = self._tier_flags(batch)
             if flags is None:
                 continue
+            if self.mesh is not None and "rows" not in batch:
+                batch = shard_batch(
+                    pad_batch_to_multiple(batch, self.mesh.n_data * n_micro, SHARD_KEYS),
+                    self.mesh, batch_keys=SHARD_KEYS, n_micro=n_micro,
+                )
             nxt = (_upload(batch, self.device, TRAIN_KEYS), batch, flags)
             if prev is not None:
                 yield prev
@@ -283,8 +374,18 @@ class Trainer:
             watch = aux.pop("watch", None)
             if watch is not None:
                 self.log_watch(watch)
-            self.pred_buffer.add(aux.pop("popcount").cpu().numpy())
-            self.target_buffer.add(np.asarray(batch["y"]))
+            pred, target = aux.pop("popcount"), dev_batch["y"]
+            if self.mesh is not None:
+                # every rank's rows, in rank order (the JAX trainer's
+                # fetch_to_host of the sharded popcount)
+                keep = fetch_to_host(torch.as_tensor(batch.get("valid", np.ones(len(pred), bool)),
+                                                     dtype=torch.uint8), self.mesh).astype(bool)
+                pred = fetch_to_host(pred, self.mesh)[keep]
+                target = fetch_to_host(torch.as_tensor(target).float(), self.mesh)[keep]
+            else:
+                pred, target = pred.cpu().numpy(), np.asarray(batch["y"])
+            self.pred_buffer.add(pred)
+            self.target_buffer.add(target)
             for k, v in aux.items():
                 stats[k] += float(v)
             nlog += 1
@@ -402,15 +503,19 @@ class Trainer:
         """In-training sliding-window test (run_train.py:314-370) through
         the eval path (infer/sliding.py); the maps and the census
         aggregation stay on the device unless the region is above the
-        device-stitch budget."""
+        device-stitch budget. Under a mesh the patches split over the
+        ranks and rank 0 alone holds the maps and the metrics."""
         out = {}
         for ds in self.test_datasets:
             maps = run_sliding_inference(
                 [self.params], self.consts, self.mcfg, ds, stats=self.stats,
                 batch_size=self.test_patch_batch, num_workers=self.tcfg.num_workers,
                 device=self.device, return_device=True, transport=self.tcfg.transport,
-                device_feed="off" if self.tcfg.device_feed == "off" else "auto",
+                device_feed="off" if self.tcfg.device_feed == "off" or self.mesh else "auto",
+                mesh=self.mesh,
             )
+            if maps is None:  # a rank other than 0
+                continue
             # a region above the device-stitch budget comes back stitched
             # on the host, as numpy maps
             on_dev = isinstance(maps["map"], torch.Tensor)

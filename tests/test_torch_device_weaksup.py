@@ -1,8 +1,9 @@
 """The port's device-resident training feed (popcorn_tpu_torch/data/
 device_weaksup.py) on the CPU: every batch of an epoch equals the port's
 host WeaksupFeed batch after its upload, bit for bit and dtype for dtype
-(the JAX package's tests/test_device_weaksup.py cases, without its mesh
-ones, which wait for ROADMAP.md Queue 1 item 16); and the port's host
+(the JAX package's tests/test_device_weaksup.py cases; its mesh cases
+run on two ranks in tests/test_torch_dist.py, and the mesh form's rows
+here); and the port's host
 WeaksupFeed equals the JAX package's on the same region and seed, which
 the device feed's parity rests on."""
 
@@ -137,8 +138,35 @@ def test_device_feed_parity_cases(synth, tmp_path, name):
 
 
 def test_mesh_form_waits_for_item_16(synth):
-    with pytest.raises(Ineligible, match="item 16"):
-        DeviceWeaksupFeed([_ds(synth)], mesh=object(), device="cpu", batch_size=2)
+    """The mesh form (ROADMAP.md Queue 1 item 16, now ported): under a
+    grid of two data ranks each rank's feed assembles its two rows of each
+    4-sample global batch, equal to those rows of the host feed's batch
+    (the feed runs no collective, so each rank's layout stands alone); a
+    one-rank grid yields the whole batches."""
+    from popcorn_tpu_torch.dist.mesh import Mesh
+
+    ds = _ds(synth)
+    kw = dict(batch_size=4, seed=1600, prefetch=0, augment=True)
+    host = [uploaded(b) for b in WeaksupFeed([ds], **kw).epoch(0)]
+    assert host
+    for r in range(2):
+        dev = list(DeviceWeaksupFeed([ds], mesh=Mesh(2, 1, r, "cpu"), device="cpu", **kw).epoch(0))
+        assert len(dev) == len(host)
+        rows = slice(2 * r, 2 * r + 2)
+        for hb, db in zip(host, dev):
+            assert list(db["rows"]) == [2 * r, 2 * r + 1] and set(db) - {"rows"} == set(hb)
+            for k, v in db.items():
+                if k in ("rows", "photometric"):
+                    continue
+                w = hb[k][rows]
+                if isinstance(v, torch.Tensor):
+                    assert v.dtype == w.dtype and torch.equal(v, w), k
+                else:
+                    np.testing.assert_array_equal(v, w, err_msg=k)
+            np.testing.assert_array_equal(db["photometric"], hb["photometric"])
+    _epochs(WeaksupFeed([ds], **kw), DeviceWeaksupFeed([ds], mesh=Mesh(1, 1, 0, "cpu"),
+                                                       device="cpu", **kw))
+    ds.close()
 
 
 def test_ineligible_budget(synth):

@@ -1,8 +1,9 @@
 """The port stands alone: every module of popcorn_tpu_torch imports with
 jax, ml_dtypes, optax, orbax and popcorn_tpu made unimportable, and no
 file of the package (nor chip_smoke.py) imports any of them (the machine
-with the card has none of them); the time-series and DDA modules import
-no pandas or matplotlib either."""
+with the card has none of them); the time-series, DDA, rank-layer and
+whole-frame modules import no pandas or matplotlib either, and importing
+the rank layer (dist/) and infer/spatial.py starts no process group."""
 
 import ast
 import os
@@ -19,7 +20,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "optax", "orbax", "popcorn_tpu")
 # series and DDA training write their tables with the csv module
 NO_PANDAS = ("dda/datasets.py", "dda/losses.py", "dda/metrics.py", "dda/network.py",
              "dda/train.py", "infer/timeseries.py", "infer/pop_timeseries.py",
-             "cli/timeseries.py", "cli/dda_train.py")
+             "cli/timeseries.py", "cli/dda_train.py", "dist/mesh.py", "dist/launch.py",
+             "dist/multihost.py", "infer/spatial.py")
 
 
 def _sources():
@@ -79,3 +81,36 @@ def test_every_module_imports_without_jax():
     )
     assert r.returncode == 0, r.stderr
     assert int(r.stdout.strip()) >= 20
+
+
+def test_rank_layer_import_starts_no_process_group():
+    """dist/mesh.py, dist/launch.py, dist/multihost.py and infer/spatial.py
+    import without jax and leave torch.distributed uninitialised: ranks
+    join a group only through init_distributed (or the CLIs' spawn)."""
+    code = textwrap.dedent(
+        """
+        import sys
+
+        class Block:
+            def find_spec(self, name, path=None, target=None):
+                if name.split(".")[0] in FORBIDDEN:
+                    raise ImportError(f"blocked: {name}")
+                return None
+
+        sys.meta_path.insert(0, Block())
+        import torch.distributed as dist
+        import popcorn_tpu_torch.dist.launch
+        import popcorn_tpu_torch.dist.mesh as mesh
+        import popcorn_tpu_torch.dist.multihost
+        import popcorn_tpu_torch.infer.spatial
+        assert not dist.is_initialized()
+        m = mesh.make_mesh(devices=["cpu"])
+        assert (m.size, m.backend) == (1, None) and not dist.is_initialized()
+        print("ok")
+        """
+    ).replace("FORBIDDEN", repr(FORBIDDEN))
+    env = {k: v for k, v in os.environ.items()
+           if k not in ("PYTHONPATH", "WORLD_SIZE", "RANK", "MASTER_ADDR", "MASTER_PORT")}
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT, env=env, capture_output=True,
+                       text=True, timeout=300)
+    assert r.returncode == 0 and r.stdout.strip() == "ok", r.stderr

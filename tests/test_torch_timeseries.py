@@ -90,9 +90,27 @@ def test_builtup_map_matches_jax(extractor, patch):
 
 
 def test_mesh_names_its_roadmap_item(extractor):
-    with pytest.raises(NotImplementedError, match=r"item 17\)"):
-        ts.builtup_map(extractor[1], ModelConfig(), np.zeros((8, 8, 4), np.float32),
-                       np.zeros((8, 8, 2), np.float32), mesh=object(), device="cpu")
+    """builtup_map(mesh=), ROADMAP.md Queue 1 item 17's inference half, now
+    ported: the whole frame in one call (infer/spatial.py) against the JAX
+    package's mesh path on the frame padded the same way (a one-device
+    mesh: rows to 4, columns to 32), and against the port's patch path on
+    a frame that fits one patch (tests/test_spatial.py's bound)."""
+    from popcorn_tpu.dist.mesh import make_mesh as j_make_mesh
+    from popcorn_tpu_torch.dist.mesh import make_mesh
+
+    jconsts, consts = extractor
+    rng = np.random.default_rng(23)
+    s2 = rng.uniform(0, 4000, (72, 50, 4)).astype(np.float32)
+    s1 = rng.uniform(-25, 0, (72, 50, 2)).astype(np.float32)
+    got = ts.builtup_map(consts, ModelConfig(), s2, s1, mesh=make_mesh(devices=["cpu"]))
+    ref = jts.builtup_map(jconsts, JModelConfig(), s2, s1, mesh=j_make_mesh(1))
+    assert got.shape == (72, 50)
+    np.testing.assert_allclose(got, np.asarray(ref), **TOL)
+    s2p, s1p = s2[:64, :32], s1[:64, :32]
+    np.testing.assert_allclose(
+        ts.builtup_map(consts, ModelConfig(), s2p, s1p, mesh=make_mesh(devices=["cpu"])),
+        ts.builtup_map(consts, ModelConfig(), s2p, s1p, patchsize=128, device="cpu"),
+        rtol=2e-5, atol=2e-6)
 
 
 def _write_frames(root, rng, size, dates, orbits=("s1_desc", "s1_asc")):
@@ -158,9 +176,25 @@ def test_builtup_cli_on_the_cpu(extractor, tmp_path):
     got = ts_cli.main(["builtup", "--frames", frames_json, "--out-dir", str(tmp_path / "port"),
                        "--device", "cpu"])
     _assert_geotiffs_match(got, ref)
-    with pytest.raises(NotImplementedError, match=r"item 17\)"):
-        ts_cli.main(["builtup", "--frames", frames_json, "--out-dir", str(tmp_path), "--spatial",
-                     "--device", "cpu"])
+    # --spatial: each whole frame in one call, as the JAX CLI's mesh path
+    from popcorn_tpu.dist.mesh import make_mesh as j_make_mesh
+
+    ref_sp = jts.run_builtup_timeseries(jconsts, JModelConfig(), _jax_pairs(spec),
+                                        str(tmp_path / "jax_sp"), mesh=j_make_mesh(1))
+    got_sp = ts_cli.main(["builtup", "--frames", frames_json, "--out-dir", str(tmp_path / "sp"),
+                          "--spatial", "--device", "cpu"])
+    _assert_geotiffs_match(got_sp, ref_sp)
+
+
+def test_builtup_cli_spatial_without_a_card_raises(tmp_path, monkeypatch):
+    """builtup --spatial at the default --device cuda on a host without a
+    card raises before it writes anything; no frame moves to the CPU."""
+    _, frames_json = _write_frames(str(tmp_path), np.random.default_rng(22), 48, ["2022-12-31"])
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA was requested"):
+        ts_cli.main(["builtup", "--frames", frames_json, "--out-dir", str(tmp_path / "sp"),
+                     "--spatial"])
+    assert not os.path.exists(tmp_path / "sp")
 
 
 @pytest.fixture(scope="module")
@@ -242,7 +276,27 @@ def test_population_cli_on_the_cpu(population, tmp_path):
     got = ts_cli.main(argv)
     _assert_totals_match(got, ref)
     _assert_outputs_match(str(tmp_path / "out"), jout)
-    with pytest.raises(NotImplementedError, match=r"item 17\)"):
-        ts_cli.main([*argv, "--spatial"])
+    # --spatial: each step's eval whole-frame, against the JAX package's
+    # whole-frame eval of the step (run_timeseries.py parses and ignores
+    # the flag; infer/spatial.py::run_spatial_inference is its function)
+    from popcorn_tpu.config import DataPaths as JDataPaths
+    from popcorn_tpu.data.dataset import PopulationDataset as JDataset
+    from popcorn_tpu.dist.mesh import make_mesh as j_make_mesh
+    from popcorn_tpu.infer.spatial import run_spatial_inference as j_spatial
+
+    sp_dir = str(tmp_path / "sp")
+    got_sp = ts_cli.main([*argv[:4], sp_dir, *argv[5:], "--spatial"])
+    jmembers = [j_load_member(p) for p in cks]
+    for rec, step in zip(got_sp, steps):
+        jds = JDataset(JDataPaths(step["data_root"]), "rwa", mode="test", patchsize=PATCH,
+                       overlap=OVERLAP, fourseasons=False)
+        ref_sp = j_spatial([m[0] for m in jmembers], jmembers[0][1], JModelConfig(), jds,
+                           mesh=j_make_mesh(1))
+        jds.close()
+        np.testing.assert_allclose(rec["total_population"], float(ref_sp["map"].sum()),
+                                   rtol=TOTAL_RTOL)
+        np.testing.assert_allclose(rec["total_std"], float(ref_sp["map_std"].sum()),
+                                   rtol=STD_TOTAL_RTOL)
+    assert os.path.exists(os.path.join(sp_dir, "totals.csv"))
     with pytest.raises(SystemExit):
         ts_cli.main(["nosuchmode"])

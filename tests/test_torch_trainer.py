@@ -19,7 +19,6 @@ from popcorn_tpu.compat.torch_convert import load_popcorn_checkpoint as j_load_c
 from popcorn_tpu.losses.losses import get_loss as j_get_loss
 from popcorn_tpu_torch.cli import train as train_cli
 from popcorn_tpu_torch.cli.args import (
-    check_train_args,
     model_config_from_args,
     train_config_from_args,
     train_parser,
@@ -163,7 +162,6 @@ def _flag_cases():
 def test_every_run_train_flag_is_taken_or_refused_with_a_reason(argv):
     args = train_parser().parse_args(argv)
     try:
-        check_train_args(args)
         model_config_from_args(args)
         tcfg = train_config_from_args(args)
     except NotImplementedError as e:
