@@ -120,10 +120,22 @@ Phases, each printing one JSON line:
                gloo (dist/launch.py), rank 0's written map against the
                one-rank map (RANKED_MAP_TOL), rank 0 alone writing the one
                output folder and the census, and each rank's launches
-               exact.
-Each of phases 9-12 prints its wall seconds.
+               exact;
+ 13. spatial_train — --spatial_train: one seeded 1x4096x2048 crop (the
+               DDA weights, a seeded head, a drawn sparsity mask) through
+               the train step on one rank and with its rows over two ranks
+               on cuda:0 over gloo, in float32 and bf16, the two ranks held
+               to the one rank (SPATIAL_* constants), each rank launching
+               exactly 6 A and 4 B in the dtype's mode and 1 C and 1 D,
+               with each rank's step ms and peak memory beside the one
+               rank's; then the train CLI's --spatial_train on the same two
+               ranks against the one-rank CLI (first loss at the bf16
+               bound), rank 0 alone writing last_model.pth, which the eval
+               CLI turns into finite maps.
+Each of phases 9-13 prints its wall seconds.
 Kernel D (the head backward) is checked in phase 3 at the train phase's
-bucket shape (2x1024x1024) and at 2x2048^2. Then the {"kernels": [...]}
+bucket shape (2x1024x1024), at 2x2048^2 and at a spatial rank's kept rows
+(1x2048x2048, as kernel C's 2-channel forward). Then the {"kernels": [...]}
 summary, the nvidia-smi name/power line, and last {"ok": true, "device":
 {...}}. Any failure raises: the script exits non-zero and prints no
 result. Run from the repository root:
@@ -153,18 +165,16 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 
-# Published peaks of one H100 SXM (NVIDIA data sheet): FP32 on the CUDA
-# cores, dense TF32 and INT8 on the tensor cores, and HBM3 bandwidth. The
-# float kernels A-D are held to the least time at float32 accuracy: three
-# dense TF32 passes a product (the 3xTF32 split, which they run), with
-# the FP32 CUDA-core figure beside it (bound_fp32_ms). The int8 kernels
-# E-H, on the int8 tensor cores (mma.sync), are held to the card's dense
-# int8 peak.
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
+# The card's published dense peaks, read in main from the port's one table
+# (popcorn_tpu_torch/utils/flops.py::device_peak_flops, by the card's name;
+# an H100 SXM: FP32 67 TFLOP/s on the CUDA cores, TF32 495, bf16 989 and
+# int8 1,979 TOP/s on the tensor cores), and HBM3 bandwidth. The float
+# kernels A-D are held to the least time at float32 accuracy: three dense
+# TF32 passes a product (the 3xTF32 split, which they run), with the FP32
+# CUDA-core figure beside it (bound_fp32_ms). The int8 kernels E-H, on the
+# int8 tensor cores (mma.sync), are held to the card's dense int8 peak.
+PEAK = {}  # 'fp32', 'tf32', 'bf16', 'int8' -> FLOP/s (int8: OP/s)
 TF32_PASSES = 3
-PEAK_INT8_OPS = 1979e12
-PEAK_BF16_FLOPS = 989e12
 # what each float kernel's float32 mode is designed against
 DESIGNED_AGAINST = {"double_conv": "tf32x3", "up_block": "tf32x3", "head": "tf32x3",
                     "head_bwd": "tf32x3"}
@@ -329,6 +339,32 @@ TRAIN_BUCKET = (2, 1024, 1024)
 # steady train-step timing: each bucket shape is run once untimed (cuDNN
 # plan selection, allocator growth), then STEP_REPS times
 STEP_REPS = 5
+# spatial_train: one seeded crop at the top of the bucket ladder (8.39M px,
+# under limit1's 9M: the full-gradient tier) whose rows split over two
+# ranks on cuda:0, SPATIAL_KEPT kept rows each; the model is the repo's DDA
+# weights with a head seeded SPATIAL_HEAD_SEED, the sparsity mask drawn
+# from SPATIAL_MASK_SEED. Float32 (TF32 off) against one rank at the
+# rehearsal's bounds (REHEARSAL_*, the JAX test's for a row-sharded step):
+# loss, popcount and every stepped parameter; beside them each gradient
+# leaf norm-relative STEP_RTOL and each update norm-relative
+# STEP_UPDATE_RTOL, as phase train_step holds the card to the CPU. The
+# elementwise parameter bound is the fragile one: the reference's clip
+# (0.01 of the global norm) leaves many gradient elements near Adam's eps
+# (1e-8), where lr g / (|g| + eps) turns a float32 difference in the
+# gradient into a share of lr, so the line reports how many parameters
+# fall outside it. bf16 at the train_step phase's bounds (STEP_BF16_*).
+# Each rank's step launches
+# SPATIAL_LAUNCHES of the kernels: the builder's blocks in the dtype's
+# mode, and the training head (float32 in both) once forward, once back.
+SPATIAL_CROP = (1, 4096, 2048)
+SPATIAL_KEPT = (1, 2048, 2048)
+SPATIAL_HEAD_SEED, SPATIAL_MASK_SEED = 7, 11
+SPATIAL_LAUNCHES = {
+    "float32": {"double_conv": 6, "up_block": 4, "double_conv_bf16": 0, "up_block_bf16": 0,
+                "head": 1, "head_bf16": 0, "head_bwd": 1},
+    "bfloat16": {"double_conv": 0, "up_block": 0, "double_conv_bf16": 6, "up_block_bf16": 4,
+                 "head": 1, "head_bf16": 0, "head_bwd": 1},
+}
 
 
 def emit(obj) -> None:
@@ -360,7 +396,7 @@ def time_ms(fn, reps: int = KERNEL_REPS) -> float:
     return start.elapsed_time(end) / reps
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_FP32_FLOPS):
+def bound(flops: float, nbytes: float, peak: float):
     t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -369,11 +405,11 @@ def float_bounds(kernel: str, flops: float, nbytes: float) -> dict:
     """A float kernel's bounds: bound_ms at float32 accuracy on the tensor
     cores (TF32_PASSES dense TF32 passes), bound_fp32_ms on the CUDA
     cores, and the least operations time the summary adds up (ops_ms)."""
-    b_ms, by = bound(TF32_PASSES * flops, nbytes, PEAK_TF32_FLOPS)
-    b32_ms, by32 = bound(flops, nbytes, PEAK_FP32_FLOPS)
+    b_ms, by = bound(TF32_PASSES * flops, nbytes, PEAK["tf32"])
+    b32_ms, by32 = bound(flops, nbytes, PEAK["fp32"])
     return {"bound_ms": b_ms, "bound_by": by, "bound_fp32_ms": b32_ms, "bound_fp32_by": by32,
             "designed_against": DESIGNED_AGAINST[kernel],
-            "ops_ms": TF32_PASSES * flops / PEAK_TF32_FLOPS * 1e3}
+            "ops_ms": TF32_PASSES * flops / PEAK["tf32"] * 1e3}
 
 
 def dev_us(e) -> float:
@@ -686,6 +722,146 @@ def ranked_eval(data: str, members: list, flags: list, out: str, n_data: int,
                                 "up_block": B.launches, "head": C.launches}}, f)
 
 
+def train_losses_of(folder: str) -> list:
+    """The logged optimization loss of every step of a training run (its
+    metrics.jsonl)."""
+    with open(os.path.join(folder, "metrics.jsonl")) as f:
+        recs = [json.loads(line) for line in f]
+    return [r["optimization_loss/train"] for r in recs if "optimization_loss/train" in r]
+
+def spatial_crop() -> dict:
+    """The spatial_train phase's seeded batch: one SPATIAL_CROP crop with
+    S2, S1, photometric values, a target and an admin mask of four census
+    ids in regions with wavy borders, pad elsewhere; the sample is id 2."""
+    import numpy as np
+
+    b, h, w = SPATIAL_CROP
+    rng = np.random.default_rng(SPATIAL_HEAD_SEED)
+    yy, xx = np.mgrid[0:h, 0:w] / np.asarray([h, w], np.float32)[:, None, None]
+    ids = 1 + (xx + 0.07 * np.sin(yy * 19.0) > 0.5) + 2 * (yy + 0.03 * np.cos(xx * 23.0) > 0.5)
+    admin = np.where((xx - 0.83) ** 2 + ((yy - 0.07) * h / w) ** 2 < 0.01, -1, ids).astype(np.float32)
+    return {
+        "S2": rng.uniform(0, 4000, (b, h, w, 4)).astype(np.float32),
+        "S1": rng.uniform(-25, 0, (b, h, w, 2)).astype(np.float32),
+        "admin_mask": admin[None].repeat(b, 0),
+        "census_idx": np.full((b,), 2.0, np.float32),
+        "y": np.full((b,), 2.0e4, np.float32),
+        "photometric": np.asarray([1.0, 0.9, 1.0, 1.1], np.float32),
+    }
+
+
+def spatial_train_steps(mesh, dev) -> dict:
+    """The spatial_train phase's step on ``mesh``'s rows of spatial_crop()
+    (None: the plain step of one rank), in float32 and in bf16: each run
+    once checked, with its kernel launches counted, and once timed. By
+    dtype: loss, popcount, the gradients summed over the ranks and the
+    stepped parameters (on the host), the timed step's ms, the checked
+    step's peak device memory and launches."""
+    import numpy as np
+    import torch
+
+    from popcorn_tpu_torch.compat.weights import load_popcorn_from_dda, to_torch
+    from popcorn_tpu_torch.config import ModelConfig, TrainConfig
+    from popcorn_tpu_torch.data.normalize import NormStats
+    from popcorn_tpu_torch.dist.mesh import shard_batch_spatial
+    from popcorn_tpu_torch.nn import double_conv as A
+    from popcorn_tpu_torch.nn import head as C
+    from popcorn_tpu_torch.nn import up_block as B
+    from popcorn_tpu_torch.train import state as train_state
+    from popcorn_tpu_torch.train.trainer import ROW_KEYS
+
+    counters = {"double_conv": (A, "launches"), "up_block": (B, "launches"),
+                "double_conv_bf16": (A, "launches_bf16"), "up_block_bf16": (B, "launches_bf16"),
+                "head": (C, "launches"), "head_bf16": (C, "launches_bf16"),
+                "head_bwd": (C, "bwd_launches")}
+    tcfg = TrainConfig()
+    host = shard_batch_spatial(spatial_crop(), mesh, row_keys=ROW_KEYS)
+    batch = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
+             for k, v in host.items()}
+    out = {"row_block": host.get("row_block")}
+    for cdt in ("float32", "bfloat16"):
+        mcfg = ModelConfig(biasinit=0.9407, compute_dtype=cdt)
+        params, consts = load_popcorn_from_dda(mcfg, head_seed=SPATIAL_HEAD_SEED)
+        p = to_torch(params, dev)
+        step = train_state.make_train_step(mcfg, tcfg, to_torch(consts, dev), NormStats(device=dev),
+                                           train_state.make_optimizer(tcfg), mesh=mesh)
+
+        def run():
+            grads, aux = step.grads(p, batch, torch.Generator().manual_seed(SPATIAL_MASK_SEED))
+            if step.mesh is not None:
+                grads = step.reduce_grads(grads)
+            new, _ = step.optimizer.update(grads, step.optimizer.init(p), p)
+            return grads, aux, new
+
+        for mod, attr in counters.values():
+            setattr(mod, attr, 0)
+        torch.cuda.synchronize(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        grads, aux, new = run()
+        torch.cuda.synchronize(dev)
+        peak = torch.cuda.max_memory_allocated(dev)
+        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        rec = {"loss": float(aux["optimization_loss"]), "popcount": aux["popcount"].cpu().numpy(),
+               "grads": {k: v.cpu() for k, v in train_state.tree_flatten(grads)},
+               "params": {k: v.cpu() for k, v in train_state.tree_flatten(new)},
+               "peak_mem_bytes": peak, "launches": launches}
+        del grads, aux, new
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize(dev)
+        rec["step_ms"] = (time.perf_counter() - t0) * 1e3
+        out[cdt] = rec
+        del step, p
+        torch.cuda.empty_cache()
+    return out
+
+
+def spatial_train_rank(out: str) -> None:
+    """One of two ranks sharing cuda:0 over gloo (dist/launch.py spawns
+    them): spatial_train_steps on this rank's rows, saved to
+    ``out``.rank<r>.pt."""
+    import torch
+
+    from popcorn_tpu_torch.dist.mesh import make_mesh
+
+    mesh = make_mesh(2, devices=["cuda:0"] * 2)
+    rec = spatial_train_steps(mesh, mesh.device)
+    rec["backend"] = mesh.backend
+    torch.save(rec, f"{out}.rank{mesh.rank}.pt")
+
+
+def spatial_train_cli(argv: list, out: str) -> None:
+    """One of two ranks sharing cuda:0 over gloo: the train CLI's command
+    line ``argv`` (with --spatial_train) through its Trainer on the two
+    ranks' grid, as the CLI's own ranks build it on two cards. Every rank
+    writes its wall time, experiment folder, whether it writes, and its
+    kernel launches to ``out``.rank<r>.json."""
+    import torch
+
+    from popcorn_tpu_torch.cli.args import model_config_from_args, train_config_from_args, train_parser
+    from popcorn_tpu_torch.config import DataPaths
+    from popcorn_tpu_torch.dist.mesh import make_mesh
+    from popcorn_tpu_torch.nn import double_conv as A
+    from popcorn_tpu_torch.nn import head as C
+    from popcorn_tpu_torch.nn import up_block as B
+    from popcorn_tpu_torch.train.trainer import Trainer
+
+    mesh = make_mesh(2, devices=["cuda:0"] * 2)
+    a = train_parser().parse_args(argv)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer = Trainer(DataPaths(a.data_root), model_config_from_args(a), train_config_from_args(a),
+                      device=a.device, mesh=mesh)
+    trainer.train()
+    torch.cuda.synchronize()
+    with open(f"{out}.rank{mesh.rank}.json", "w") as f:
+        json.dump({"rank": mesh.rank, "backend": mesh.backend, "wall_s": time.perf_counter() - t0,
+                   "folder": trainer.experiment_folder, "writes": trainer.is_root,
+                   "feed": trainer.feed_choice,
+                   "launches": {"double_conv_bf16": A.launches_bf16, "up_block_bf16": B.launches_bf16,
+                                "head": C.launches, "head_bwd": C.bwd_launches}}, f)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="stop after the kernel checks")
@@ -706,11 +882,17 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda:0")
     smi = nvidia_smi_line()
+    from popcorn_tpu_torch.utils.flops import device_peak_flops
+
+    PEAK.update({k: device_peak_flops(dev, k) for k in ("fp32", "tf32", "bf16", "int8")})
     emit({
         "phase": "device", "nvidia_smi": smi, "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count(), "python": sys.version.split()[0],
-        "torch": torch.__version__, "cuda": torch.version.cuda,
+        "torch": torch.__version__, "cuda": torch.version.cuda, "peaks": PEAK,
     })
+    if None in PEAK.values():
+        raise SystemExit(f"chip_smoke: no published peaks for {torch.cuda.get_device_name(0)} "
+                         "in popcorn_tpu_torch/utils/flops.py")
 
     # ----------------------------------------------------------------- 2. build
     from popcorn_tpu_torch.nn import cuda_lib
@@ -925,7 +1107,7 @@ def main() -> None:
         npx = shape[0] * shape[1] * shape[2]
         flops = 2.0 * npx * 9 * (cin * cm + cm * cout)
         for x, esz, kernel, peak in ((x32, 4, "double_conv", None),
-                                     (x32.to(bf16), 2, "double_conv_bf16", PEAK_BF16_FLOPS)):
+                                     (x32.to(bf16), 2, "double_conv_bf16", PEAK["bf16"])):
             nbytes = esz * (npx * (cin + cout) + 9 * (cin * cm + cm * cout)) + 4.0 * 2 * (cm + cout)
             check_case(
                 kernel, f"{name} {'x'.join(map(str, shape))}->{cout}", mult,
@@ -950,7 +1132,7 @@ def main() -> None:
         nw = c1 * 4 * cu + 9 * ((cs + cu) * cm + cm * cout)
         for x1, x2, esz, kernel, peak in (
             (x1_32, x2_32, 4, "up_block", None),
-            (x1_32.to(bf16), x2_32.to(bf16), 2, "up_block_bf16", PEAK_BF16_FLOPS),
+            (x1_32.to(bf16), x2_32.to(bf16), 2, "up_block_bf16", PEAK["bf16"]),
         ):
             nbytes = esz * (x1.numel() + x2.numel() + npx * cout + nw) + 4.0 * (cu + 2 * (cm + cout))
             check_case(
@@ -962,12 +1144,14 @@ def main() -> None:
         del x1, x2, x1_32, x2_32
 
     # kernel C: channel 0 (the member fold) at 2048^2 in float32 and bf16,
-    # and the training forward's 2 channels at the train bucket
+    # and the training forward's 2 channels at the train bucket and at a
+    # spatial rank's kept rows
     feats = rand(1, P, P, 16, relu=True)
     for x, n_out, mult, kernel, esz, peak in (
         (feats, 1, 1, "head", 4, None),
-        (feats.to(bf16), 1, 1, "head_bf16", 2, PEAK_BF16_FLOPS),
+        (feats.to(bf16), 1, 1, "head_bf16", 2, PEAK["bf16"]),
         (rand(*TRAIN_BUCKET, 16, relu=True), 2, 0, "head", 4, None),
+        (rand(*SPATIAL_KEPT, 16, relu=True), 2, 0, "head", 4, None),
     ):
         npx = x.numel() // 16
         flops = 2.0 * npx * (16 * 64 + 64 * 64 * 2 + 64 * n_out)
@@ -981,8 +1165,9 @@ def main() -> None:
         )
     del feats, x
 
-    # kernel D: the head backward at the train phase's bucket and at a
-    # 2x2048^2 step (8.4M px, under limit1's 9M: the full-gradient tier)
+    # kernel D: the head backward at the train phase's bucket, at a
+    # 2x2048^2 step (8.4M px, under limit1's 9M: the full-gradient tier) and
+    # at a spatial rank's kept rows of the spatial_train phase's crop
     def relu_boundary(x):
         """Pixels with a hidden pre-activation within BOUNDARY of 0: there
         the ReLU mask of the backward may differ between two float32
@@ -1014,7 +1199,7 @@ def main() -> None:
     # the same count again for dW4..dW1 (55,808 FLOPs)
     flops_px = 2.0 * ((16 * 64 + 2 * 64 * 64) + 2 * (64 * 2 + 2 * 64 * 64 + 64 * 16))
     wbytes = 4.0 * (16 * 64 + 2 * 64 * 64 + 64 * 2 + 3 * 64 + 2)
-    for lead, mult in ((TRAIN_BUCKET, 1), ((2, P, P), 0)):
+    for lead, mult in ((TRAIN_BUCKET, 1), ((2, P, P), 0), (SPATIAL_KEPT, 0)):
         x = rand(*lead, 16)
         gout = rand(*lead, 2)
         npx = math.prod(lead)
@@ -1098,7 +1283,7 @@ def main() -> None:
         ops, nb = dc_cost(xq, p, 1, 4 if fo else 1)
         check_case("double_conv_qs", f"{name} {shape_name(xq)}", mult,
                    lambda: A.double_conv_qs_cuda(*a, xq, fo), lambda: A.double_conv_qs_plain(*a, xq, fo),
-                   lambda: dc_qs_library(*a, xq, fo), ops, nb, PEAK_INT8_OPS, exact=True)
+                   lambda: dc_qs_library(*a, xq, fo), ops, nb, PEAK["int8"], exact=True)
         return A.double_conv_qs_cuda(*a, xq, fo)
 
     def f_case(name, mult, stream, block, x1q, x2q, s_x1, s_x2, s_up, s_y1, s_out, odt=None):
@@ -1115,7 +1300,7 @@ def main() -> None:
         check_case("up_block_qs_bf16" if bf else "up_block_qs", f"{name} {shape_name(x1q, x2q)}", mult,
                    lambda: B.up_block_qs_cuda(*a, x1q, x2q, fo, odt),
                    lambda: to(B.up_block_qs_plain(*a, x1q, x2q, fo)),
-                   lambda: to(up_qs_library(*a, x1q, x2q, fo)), ops, nb, PEAK_INT8_OPS, exact=True,
+                   lambda: to(up_qs_library(*a, x1q, x2q, fo)), ops, nb, PEAK["int8"], exact=True,
                    ab_parent=(lambda: B.up_block_qs_cuda(*a, x1q, x2q, fo).to(bf16)) if bf else None)
         return B.up_block_qs_cuda(*a, x1q, x2q, fo, odt)
 
@@ -1130,7 +1315,7 @@ def main() -> None:
             to = (lambda t: t.to(xm.dtype))
             check_case(kernel, f"{name} {shape_name(xm)}", mult,
                        lambda: A.double_conv_q_cuda(*a, xm), lambda: to(A.double_conv_q_plain(*a, xm.float())),
-                       lambda: to(dc_q_library(*a, xm.float())), ops, nb, PEAK_INT8_OPS,
+                       lambda: to(dc_q_library(*a, xm.float())), ops, nb, PEAK["int8"],
                        ab_parent=((lambda: A.double_conv_q_cuda(*a, xm.float()).to(bf16))
                                   if esz == 2 else None))
 
@@ -1149,7 +1334,7 @@ def main() -> None:
                        lambda: B.up_block_q_cuda(*a, x1m, x2m),
                        lambda: to(B.up_block_q_plain(*a, x1m.float(), x2m.float())),
                        lambda: to(up_q_library(*a, x1m.float(), x2m.float())), ops, nb,
-                       PEAK_INT8_OPS,
+                       PEAK["int8"],
                        ab_parent=((lambda: B.up_block_q_cuda(*a, x1m.float(), x2m.float()).to(bf16))
                                   if esz == 2 else None))
 
@@ -2250,6 +2435,124 @@ def main() -> None:
             raise AssertionError(f"phase dist: {checks}")
         del loaded
         torch.cuda.empty_cache()
+
+        # ----------------------------------------------------------- 13. spatial_train
+        # (1) the spatial step of one 1x4096x2048 crop on one rank and with
+        # its rows over two ranks on cuda:0 over gloo, float32 and bf16;
+        # (2) the train CLI's --spatial_train on the same two ranks against
+        # the one-rank CLI, then the eval CLI on its checkpoint
+        from popcorn_tpu_torch.cli.args import train_parser
+
+        t_phase = time.perf_counter()
+        sp_rec = {}
+        one = spatial_train_steps(None, dev)
+        torch.cuda.empty_cache()
+        out_sp = os.path.join(tmp, "spatial_steps")
+        t0 = time.perf_counter()
+        spawn_ranks(spatial_train_rank, 2, (out_sp,), devices=["cuda:0", "cuda:0"])
+        spawn_wall = time.perf_counter() - t0
+        ranks_sp = [torch.load(f"{out_sp}.rank{r}.pt", weights_only=False) for r in range(2)]
+        steps_ok = all(r["backend"] == "gloo" for r in ranks_sp)
+        step_rec = {"crop": list(SPATIAL_CROP), "spawn_wall_s": spawn_wall,
+                    "row_blocks": [list(r["row_block"]) for r in ranks_sp]}
+        for cdt in ("float32", "bfloat16"):
+            ref, got = one[cdt], ranks_sp[0][cdt]
+            loss_rel = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+            pop_rel = float(np.max(np.abs(got["popcount"] - ref["popcount"]) / np.abs(ref["popcount"])))
+            vr = torch.cat([g.ravel() for g in ref["grads"].values()]).double()
+            vg = torch.cat([got["grads"][k].ravel() for k in ref["grads"]]).double()
+            grad_rel = float((vg - vr).norm() / vr.norm())
+            grad_corr = float(np.corrcoef(vr.numpy(), vg.numpy())[0, 1])
+            rec = {"loss": [got["loss"], ref["loss"]], "loss_rel": loss_rel, "popcount_rel": pop_rel,
+                   "grad_rel_l2": grad_rel, "grad_corr": grad_corr,
+                   "one_rank": {"step_ms": ref["step_ms"], "peak_mem_bytes": ref["peak_mem_bytes"],
+                                "launches": ref["launches"]},
+                   "ranks": [{"step_ms": r[cdt]["step_ms"], "peak_mem_bytes": r[cdt]["peak_mem_bytes"],
+                              "peak_mem_share": r[cdt]["peak_mem_bytes"] / ref["peak_mem_bytes"],
+                              "launches": r[cdt]["launches"]} for r in ranks_sp]}
+            ok = ([r[cdt]["launches"] for r in ranks_sp] == [SPATIAL_LAUNCHES[cdt]] * 2
+                  and ref["launches"] == SPATIAL_LAUNCHES[cdt]
+                  and ranks_sp[1][cdt]["loss"] == got["loss"])
+            if cdt == "float32":
+                # every stepped parameter at the rehearsal's bound, and each
+                # leaf's gradient and update norm-relative, as phase
+                # train_step holds the card to the CPU (module constants)
+                start = dict(train_state.tree_flatten(to_torch(load_popcorn_from_dda(
+                    mcfg, head_seed=SPATIAL_HEAD_SEED)[0], "cpu")))
+                g_rel = u_rel = 0.0
+                n_out = n_all = 0
+                for k, g in ref["grads"].items():
+                    if float(g.norm()) > 0:
+                        g_rel = max(g_rel, float((got["grads"][k] - g).norm() / g.norm()))
+                    du = ref["params"][k] - start[k]
+                    if float(du.norm()) > 0:
+                        u_rel = max(u_rel, float((got["params"][k] - start[k] - du).norm() / du.norm()))
+                    d = (got["params"][k] - ref["params"][k]).abs()
+                    n_out += int((d > REHEARSAL_PARAMS["atol"]
+                                  + REHEARSAL_PARAMS["rtol"] * ref["params"][k].abs()).sum())
+                    n_all += d.numel()
+                rec.update(grad_norm_rel_err_max=g_rel, update_norm_rel_err_max=u_rel,
+                           params_outside_rehearsal_bound=[n_out, n_all])
+                ok = (ok and loss_rel <= REHEARSAL_LOSS_RTOL and pop_rel <= REHEARSAL_LOSS_RTOL
+                      and n_out == 0 and g_rel <= STEP_RTOL and u_rel <= STEP_UPDATE_RTOL)
+            else:
+                ok = (ok and loss_rel <= STEP_BF16_RTOL and pop_rel <= STEP_BF16_RTOL
+                      and grad_rel <= STEP_BF16_RTOL and grad_corr >= STEP_BF16_CORR)
+            rec["ok"] = ok
+            step_rec[cdt] = rec
+            steps_ok &= ok
+        sp_rec["step"] = step_rec
+        del one, ranks_sp
+        torch.cuda.empty_cache()
+        # (2) the CLI: the verify skill's flags with --spatial_train, on one
+        # rank (the plain step) and on the two ranks
+        sp_argv = ["--data_root", data, "-S2", "-NIR", "-S1", "-treg", "rwa", "-tregtrain", "rwa",
+                   "-occmodel", "-senbuilds", "-pret", "-binit", "0.9407", "-tlevel", "coarse",
+                   "-e", "1", "-mws", "6", "-lt", "1", "-w", "4", "--spatial_train"]
+        t0 = time.perf_counter()
+        one_tr = train_cli.main([*sp_argv, "--save_dir", os.path.join(tmp, "sp_one")])
+        torch.cuda.synchronize()
+        one_wall = time.perf_counter() - t0
+        one_losses = train_losses_of(one_tr.experiment_folder)
+        one_feed = one_tr.feed_choice
+        del one_tr
+        torch.cuda.empty_cache()
+        sp_out = os.path.join(tmp, "sp_two")
+        t0 = time.perf_counter()
+        spawn_ranks(spatial_train_cli, 2, ([*sp_argv, "--save_dir", sp_out], sp_out),
+                    devices=["cuda:0", "cuda:0"])
+        two_wall = time.perf_counter() - t0
+        cli_ranks = [json.load(open(f"{sp_out}.rank{r}.json")) for r in range(2)]
+        folders = glob.glob(os.path.join(sp_out, "experiment_*"))
+        writes_ok = (folders == [cli_ranks[0]["folder"]] == [cli_ranks[1]["folder"]]
+                     and [r["writes"] for r in cli_ranks] == [True, False]
+                     and os.path.exists(os.path.join(folders[0], "last_model.pth")))
+        two_losses = train_losses_of(folders[0]) if folders else []
+        first_rel = (abs(two_losses[0] - one_losses[0]) / abs(one_losses[0])
+                     if two_losses and one_losses else math.inf)
+        cli_ok = (writes_ok and len(two_losses) == len(one_losses) > 0
+                  and all(math.isfinite(v) for v in two_losses) and first_rel <= STEP_BF16_RTOL
+                  and one_feed == "host" and all(r["feed"] == "host" for r in cli_ranks))
+        sp_stats = {}
+        if writes_ok:
+            ck = os.path.join(folders[0], "last_model.pth")
+            sp_stats = eval_cli.main(["--data_root", data, *eval_flags, "-r", ck, ck])
+            sp_rec["ckpt_eval_adj_coarse_r2"] = check_eval(
+                sp_stats, os.path.join(folders[0], "eval_outputs_ensemble_*"))
+        sp_rec["cli"] = {"one_rank_wall_s": one_wall, "two_ranks_spawn_wall_s": two_wall,
+                         "losses": two_losses, "one_rank_losses": one_losses,
+                         "first_loss_rel": first_rel, "ranks": cli_ranks,
+                         "rank0_writes_only": writes_ok, "ok": cli_ok}
+        emit({"phase": "spatial_train", **sp_rec, "bounds": {
+            "float32_loss_rtol": REHEARSAL_LOSS_RTOL, "float32_params": REHEARSAL_PARAMS,
+            "float32_grad_rtol": STEP_RTOL,
+            "float32_update_rtol": STEP_UPDATE_RTOL, "bf16_rtol": STEP_BF16_RTOL,
+            "bf16_corr_min": STEP_BF16_CORR},
+            "seconds": time.perf_counter() - t_phase})
+        if not (steps_ok and cli_ok):
+            raise AssertionError(f"phase spatial_train: steps {steps_ok}, cli {cli_ok}")
+        if tdist.is_initialized():
+            raise AssertionError("phase spatial_train left a process group up")
 
     # ---------------------------------------------------------------- summary
     # each kernel's launches from the run of its own path: A-C in bf16 the

@@ -125,10 +125,8 @@ def eval_parser() -> argparse.ArgumentParser:
 
 
 def train_parser() -> argparse.ArgumentParser:
-    """The flags of run_train.py (popcorn_tpu/cli/args.py::train_parser).
-    Flags of features the port does not run yet are accepted by the parser
-    and raise in ``train_config_from_args``, naming the ROADMAP item that
-    ports them; none is ignored silently."""
+    """The flags of run_train.py (popcorn_tpu/cli/args.py::train_parser),
+    each taken with the port's behaviour."""
     p = argparse.ArgumentParser(
         description="POPCORN training (PyTorch/CUDA port)", fromfile_prefix_chars="@"
     )
@@ -138,7 +136,11 @@ def train_parser() -> argparse.ArgumentParser:
     p.add_argument("-tregtrain", "--target_regions_train", nargs="+", default=["rwa"])
     p.add_argument("-wb", "--weak_batch_size", type=int, default=2)
     p.add_argument("--spatial_train", action="store_true",
-                   help="raises: not ported yet (ROADMAP.md Queue 1 item 17)")
+                   help="with --data_parallel N: split each sample's rows over the "
+                        "data ranks instead of the batch (one rank a card when N "
+                        "is not given) — census-region crops beyond one card's "
+                        "memory train across the ranks instead of being "
+                        "tier-skipped; raise -lim1/-lim2/-lim3 accordingly")
     p.add_argument("--grad_accum", type=int, default=1,
                    help="microbatches per optimizer update: same effective batch, "
                         "~N x less activation memory")
@@ -224,7 +226,7 @@ def model_config_from_args(a) -> ModelConfig:
 
 
 def train_config_from_args(a) -> TrainConfig:
-    tcfg = TrainConfig(
+    return TrainConfig(
         target_regions=tuple(a.target_regions),
         target_regions_train=tuple(a.target_regions_train),
         train_level=tuple(a.train_level),
@@ -268,8 +270,6 @@ def train_config_from_args(a) -> TrainConfig:
         transport=a.transport,
         feed_gate=a.feed_gate,
     )
-    tcfg.check()
-    return tcfg
 
 
 def _validated_grad_accum(a) -> int:

@@ -9,8 +9,10 @@ card; ``--device cpu`` runs the plain versions):
 typed as above, the command spawns them on this host (one a card; one a
 CPU process with ``--device cpu``, over gloo); under ``torchrun
 --nproc_per_node N`` it is one of them. ``--multihost`` takes torchrun's
-ranks of every host. ``--ensemble_parallel`` is an eval flag: training
-ignores it, as run_train.py does.
+ranks of every host. ``--spatial_train`` splits each crop's rows over
+the ranks instead of the batch; without ``--data_parallel`` it takes one
+rank a card (one card: one rank, the plain step). ``--ensemble_parallel``
+is an eval flag: training ignores it, as run_train.py does.
 """
 
 from __future__ import annotations
@@ -22,7 +24,7 @@ import torch
 
 from ..config import DataPaths
 from ..dist.launch import spawn_ranks, under_launcher
-from ..dist.mesh import devices_for
+from ..dist.mesh import devices_for, resolve_device
 from ..train.trainer import Trainer
 from .args import model_config_from_args, train_config_from_args, train_parser
 
@@ -37,6 +39,8 @@ def main(argv=None):
         print("--ensemble_parallel applies to the eval; training runs its "
               f"{args.data_parallel} data rank(s)")
     n = args.data_parallel
+    if args.spatial_train and n <= 1 and resolve_device(args.device).type == "cuda":
+        n = torch.cuda.device_count()
     if n > 1 and not under_launcher():
         spawn_ranks(_rank_main, n, (argv,), devices=devices_for(args.device, n))
         return None

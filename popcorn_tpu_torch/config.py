@@ -275,12 +275,20 @@ class ModelConfig:
     feature_extractor: str = "DDA"
     compute_dtype: str = "float32"  # "bfloat16": the UNets and the eval head
     # compute in bf16 (nn/popcorn.py); the CLIs default to it
+    layout: str = "auto"  # the JAX package's engine choice
+    # (popcorn_tpu/config.py:280): "auto", "packed", "wide", "spatial" and
+    # "plain" are TPU lane layouts of the same math there; every one runs
+    # the port's one NHWC engine with kernels A-C, and another value raises
+    # (nn/popcorn.py::check_config)
     fused_head: bool = True  # the head through kernels C (and D in
     # training); False runs it as four 1x1 convs in the compute dtype under
     # autograd (nn/head.py::head_unfused). popcorn_tpu/config.py:282 has the
     # same field with default False, and its CLIs turn it on only on a TPU
     # (popcorn_tpu/cli/args.py:230-232); the port's default is the fused
     # head on every device
+    pallas_packed_head: Optional[bool] = None  # the JAX package's packed
+    # head kernel (popcorn_tpu/config.py:283); accepted, and the head here is
+    # kernel C whenever fused_head is set, whatever this value
     quantize: Optional[str] = None  # eval only (train steps stay float):
     # "int8": W8A8 through the dynamic int8 kernels (nn/double_conv.py::
     # double_conv_q, nn/up_block.py::up_block_q), one activation scale per
@@ -313,10 +321,7 @@ class ModelConfig:
 class TrainConfig:
     """Training hyperparameters (reference: arguments/train.py:8-61).
 
-    The fields of the JAX package's TrainConfig, with its defaults. The
-    multi-device options are kept so that a config carries across, but the
-    port does not run them yet: ``check()`` raises for them, naming the
-    ROADMAP item that ports them."""
+    The fields of the JAX package's TrainConfig, with its defaults."""
 
     target_regions: Tuple[str, ...] = ("rwa",)
     target_regions_train: Tuple[str, ...] = ("rwa",)
@@ -360,21 +365,17 @@ class TrainConfig:
     watch_every: int = 0  # >0: log per-layer grad norms + param histograms
     device_feed: str = "auto"  # 'auto' | 'on' | 'off': the device-resident
     # training feed (data/device_weaksup.py), see train/trainer.py
-    spatial_train: bool = False  # not ported: ROADMAP Queue 1 item 17
-    # (--spatial_train: halo context through the backward)
+    spatial_train: bool = False  # split each sample's ROWS over the 'data'
+    # ranks instead of the batch: census-region crops beyond one card's
+    # memory train across the ranks (each rank recomputes its rows'
+    # context, dist/rows.py) instead of being tier-skipped above -lim3 like
+    # the reference
     grad_accum: int = 1  # microbatches per optimizer update
     transport: str = "exact"  # data-plane dtype of the float image
     # modalities ('exact' | 'bf16', data/feed.py::transport_cast)
     feed_gate: str = "auto"  # rotation-vs-host cost gate: 'auto' measures,
     # 'host' forces the host feed, 'off' keeps the rotating feed whenever
     # it fits (data/feed_select.py)
-
-    def check(self) -> None:
-        """Raise for options whose feature the port does not run yet."""
-        if self.spatial_train:
-            raise NotImplementedError(
-                "spatial_train is not ported yet (ROADMAP.md Queue 1 item 17)"
-            )
 
 
 @dataclasses.dataclass

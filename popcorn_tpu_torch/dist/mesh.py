@@ -8,7 +8,8 @@ rank is a process with one device, a ``Mesh`` is this rank's place in a
 
   * ``data``: data-parallel training (the batch's rows split over the
     ranks, gradients summed by one all-reduce), patch-split inference, and
-    the row blocks of whole-frame inference (infer/spatial.py);
+    the row blocks of whole-frame inference (infer/spatial.py) and of
+    spatial training (``shard_batch_spatial``, dist/rows.py);
   * ``ensemble``: Bag-of-POPCORN members split over the ranks, the
     minor axis (rank = data_index * n_ensemble + ensemble_index), as in
     the JAX mesh.
@@ -37,6 +38,8 @@ from typing import Any, Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 import torch.distributed as dist
+
+from .rows import rank_rows
 
 Tree = Dict[str, Any]
 
@@ -422,6 +425,29 @@ def shard_batch(batch: Dict, mesh: Optional[Mesh], *, batch_keys: Sequence[str],
     rows = mesh.batch_rows(batch[some].shape[0], n_micro)
     keys = set(batch_keys) | {"valid"}
     return {k: (_take_rows(v, rows) if k in keys else v) for k, v in batch.items()}
+
+
+def shard_batch_spatial(batch: Dict, mesh: Optional[Mesh], *, row_keys: Sequence[str]) -> Dict:
+    """This rank's rows of a host batch for spatial training
+    (popcorn_tpu/dist/mesh.py::shard_batch_spatial): each (B, H, W[, C])
+    key of ``row_keys`` cut to the rows [u0, u1) that this rank reads (its
+    kept rows [k0, k1) of dist/rows.py::rank_rows and their context), the
+    other keys whole, and 'row_block' = (H, k0, k1, u0, u1), which the
+    train step reads. Every rank passes the same global batch. With no
+    mesh, or one data rank, the batch is returned as it is (the plain
+    step)."""
+    if mesh is None or mesh.n_data == 1:
+        return batch
+    cut = [k for k in row_keys if k in batch and getattr(batch[k], "ndim", 0) >= 3]
+    rows = rank_rows(batch[cut[0]].shape[1], mesh)
+
+    def take(v):
+        v = v[:, rows.u0:rows.u1]
+        return v.contiguous() if isinstance(v, torch.Tensor) else np.ascontiguousarray(v)
+
+    out = {k: (take(v) if k in cut else v) for k, v in batch.items()}
+    out["row_block"] = (rows.hp, rows.k0, rows.k1, rows.u0, rows.u1)
+    return out
 
 
 def device_put_global(v, mesh: Optional[Mesh] = None, device=None):

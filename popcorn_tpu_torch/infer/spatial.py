@@ -16,20 +16,19 @@ How it runs here:
     columns) is one tensor on the device; above ``_CHUNK_MIN_H`` rows the
     builder runs in strips of 512 rows, above ``_MEMBER_CHUNK_MIN_H`` the
     member fold runs in strips of ``_MEMBER_CHUNK_ROWS``, each strip with
-    ``_BUILDER_HALO`` rows of true context on each side, beyond the
+    ``HALO`` rows of true context on each side, beyond the
     model's receptive field, so kept rows equal the whole-frame values to
     about 3e-7 (the bound the JAX package relies on for its own strips);
   * several ranks (dist/mesh.py): rows pad to a multiple of 4 x n_data
-    and rank d computes its block of rows with ``_BUILDER_HALO`` rows of
-    context on each side, keeps its own rows, and the maps are gathered —
-    the explicit form of the halo exchange XLA inserts for the JAX
-    package. Members split over the 'ensemble' ranks, whose sums add up.
+    and rank d computes its block of rows with two halos of context on
+    each side, keeps its own rows, and the maps are gathered: the row
+    geometry of dist/rows.py, which spatial training shares. Members split
+    over the 'ensemble' ranks, whose sums add up.
 
-Strip and block starts stay on multiples of 4 of the frame the reference
-pads (``add_padding(force=False)``, applied once to the whole frame), so
-the two max-pools see the same grid as on the whole frame; at the true
-frame edges a strip's edge is the frame's, so the reference's reflect
-padding is kept exactly.
+Strip and block starts stay on multiples of 4 of the frame, and each
+member window of the reference-padded frame (``add_padding(force=False)``,
+applied only at the frame's true edges) starts on a multiple of 4, so the
+two max-pools see the same grid as on the whole frame.
 
 The JAX package's ``_spatial_cfg`` turns off its Pallas kernels, only
 because a Pallas call has no SPMD sharding rule; a rank's tensors are
@@ -46,22 +45,18 @@ from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 
 from ..config import ModelConfig
 from ..data.feed import transport_cast
 from ..data.normalize import NormStats, normalize_and_assemble
 from ..dist.mesh import Mesh, resolve_device
+from ..dist.rows import HALO, Rows, member_window, rank_rows
 from ..io.geotiff import has_nan
-from ..nn.ops import to_nchw, to_nhwc
 from ..nn.popcorn import compute_dtype, create_building_score, popcorn_predict
 from .sliding import _upload, finalize_maps
 
 Tree = Dict
 
-_BUILDER_HALO = 64  # rows of true context a strip or block: > the builder's
-# ~45 px receptive field with its reflect-14 pad, the bound the patch
-# stitch's 128-px overlap also rests on
 _CHUNK_MIN_H = 3072  # from this height a single rank chunks the builder
 _MEMBER_CHUNK_MIN_H = 5120  # from this height a single rank folds members
 # in strips (the member fold's temporaries are about 256 B a pixel)
@@ -95,15 +90,6 @@ def _pad_frame(a: np.ndarray, mh: int, mw: int) -> Tuple[np.ndarray, Tuple[int, 
     return np.pad(a, pad, mode="edge"), (ph, pw)
 
 
-def _ref_pad(n: int) -> Tuple[int, int]:
-    """The reference's pad of one side length (``add_padding(force=False)``):
-    reflect up to a multiple of 64 unless it is a multiple of 32."""
-    if n % 32 == 0:
-        return 0, 0
-    t = 64 - n % 64
-    return t // 2, t - t // 2
-
-
 def _device(mesh: Optional[Mesh], device=None) -> torch.device:
     return resolve_device(mesh.device if mesh is not None else device or "cuda")
 
@@ -121,37 +107,11 @@ def _inputs(sample: Dict, mcfg: ModelConfig, stats: NormStats, rows: slice, dev)
     return normalize_and_assemble(_rows_on(sample, keys, rows, dev), stats)
 
 
-@dataclasses.dataclass
-class _Rows:
-    """A block of kept rows [k0, k1) of a frame of ``hp`` rows and the rows
-    [u0, u1) it reads: two halos of context each side, clipped to the
-    frame (one for the builder's receptive field, one for the members')."""
-
-    hp: int
-    k0: int
-    k1: int
-
-    @property
-    def u0(self) -> int:
-        return max(0, self.k0 - 2 * _BUILDER_HALO)
-
-    @property
-    def u1(self) -> int:
-        return min(self.hp, self.k1 + 2 * _BUILDER_HALO)
-
-
-def _rank_rows(hp: int, mesh: Optional[Mesh]) -> _Rows:
-    nd = data_axis_size(mesh)
-    hb = hp // nd
-    d = 0 if mesh is None else mesh.data_index
-    return _Rows(hp, d * hb, (d + 1) * hb)
-
-
-def _strips(rows: _Rows, s: int):
+def _strips(rows: Rows, s: int):
     """The blocks of at most ``s`` kept rows (multiples of 4) of ``rows``."""
     s = max(4, s - s % 4)
     for k0 in range(rows.k0, rows.k1, s):
-        yield _Rows(rows.hp, k0, min(rows.k1, k0 + s))
+        yield Rows(rows.hp, k0, min(rows.k1, k0 + s))
 
 
 def _gather_rows(t: torch.Tensor, mesh: Optional[Mesh]) -> torch.Tensor:
@@ -169,31 +129,14 @@ def _score(builder: Tree, x: torch.Tensor, mcfg: ModelConfig, chunk: bool) -> to
 
 
 def _member_block(params: Tree, consts: Tree, mcfg_member: ModelConfig, x_u: torch.Tensor,
-                  score_u: torch.Tensor, rows: _Rows, base: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                  score_u: torch.Tensor, rows: Rows, base: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """One member's (density, scale) over the kept rows of ``rows``, from
     ``x_u``/``score_u``: the frame's rows from ``base`` that hold
-    [rows.u0, rows.u1). The frame's reference padding is applied where
-    these rows meet the frame's edges, then the member runs unpadded on a
-    window of the padded frame that starts on a multiple of 4 and holds a
-    halo of context each side of the kept rows."""
-    px1, px2 = _ref_pad(rows.hp)
-    py1, py2 = _ref_pad(x_u.shape[2])
-    x = x_u[:, rows.u0 - base:rows.u1 - base]
-    s = score_u[:, rows.u0 - base:rows.u1 - base]
-    top = px1 if rows.u0 == 0 else 0
-    bot = px2 if rows.u1 == rows.hp else 0
-    if top or bot or py1 or py2:
-        x = to_nhwc(F.pad(to_nchw(x), (py1, py2, top, bot), mode="reflect"))
-        s = F.pad(s, (py1, py2, top, bot))
-    p0 = 0 if rows.u0 == 0 else rows.u0 + px1  # padded-frame row of x's first
-    k0p, k1p = rows.k0 + px1, rows.k1 + px1
-    a0 = max(p0, (k0p - _BUILDER_HALO) // 4 * 4)
-    a1 = min(p0 + x.shape[1], a0 + -(-(k1p + _BUILDER_HALO - a0) // 4) * 4)
-    out = popcorn_predict(params, consts, {"input": x[:, a0 - p0:a1 - p0].contiguous(),
-                                           "building_counts": s[:, a0 - p0:a1 - p0]},
-                          mcfg_member, padding=None)
-    keep = slice(k0p - a0, k1p - a0)
-    cols = slice(py1, py1 + x_u.shape[2])
+    [rows.u0, rows.u1), run unpadded on their window of the reference-padded
+    frame (dist/rows.py::member_window)."""
+    x, s, keep, cols = member_window(x_u, score_u, rows, base)
+    out = popcorn_predict(params, consts, {"input": x, "building_counts": s}, mcfg_member,
+                          padding=None)
     dense = out["popdensemap"][:, keep, cols].float()
     scale = out["scale"]
     scale = torch.zeros_like(dense) if scale is None else scale[:, keep, cols].float()
@@ -205,18 +148,18 @@ def chunked_building_score(consts: Tree, x: torch.Tensor, mcfg: ModelConfig, dty
     """Row-chunked building score of a whole frame on one device
     (popcorn_tpu/infer/spatial.py::chunked_building_score): strips of
     ``rows_per_chunk`` kept rows, each computed on a window with
-    ``_BUILDER_HALO`` rows of true context on each side, beyond the
+    ``HALO`` rows of true context on each side, beyond the
     builder's receptive field, so the kept rows equal the whole-frame
     builder to about 3e-7; at the true frame edges the window's edge is
     the frame's, which keeps the reference's reflect padding exactly."""
     b, h, w, _ = x.shape
-    s = min(rows_per_chunk, max(4, h - 2 * _BUILDER_HALO))
+    s = min(rows_per_chunk, max(4, h - 2 * HALO))
     while h % s:
         s -= 4
-    win_h = min(s + 2 * _BUILDER_HALO, h)
+    win_h = min(s + 2 * HALO, h)
     out = torch.empty((b, h, w), dtype=torch.float32, device=x.device)
     for r0 in range(0, h, s):
-        start = min(max(r0 - _BUILDER_HALO, 0), h - win_h)
+        start = min(max(r0 - HALO, 0), h - win_h)
         score = create_building_score(consts["builder"], x[:, start:start + win_h], s1=mcfg.s1,
                                       s2=mcfg.s2, nir=mcfg.nir, dtype=dtype)
         out[:, r0:r0 + s] = score[:, r0 - start:r0 - start + s]
@@ -237,7 +180,7 @@ def make_spatial_builtup(consts: Tree, mcfg: ModelConfig, mesh: Optional[Mesh] =
 
     @torch.no_grad()
     def fn(s2, s1) -> torch.Tensor:
-        rows = _rank_rows(s2.shape[1], mesh)
+        rows = rank_rows(s2.shape[1], mesh)
         x = _inputs({"S2": s2, "S1": s1}, mcfg, stats, slice(rows.u0, rows.u1), dev)
         score = _score(builder, x, mcfg, False)
         return _gather_rows(score[:, rows.k0 - rows.u0:rows.k1 - rows.u0], mesh)
@@ -276,7 +219,7 @@ def make_spatial_popcorn(params: Tree, consts: Tree, mcfg: ModelConfig,
 
     @torch.no_grad()
     def fn(p, s2, s1) -> torch.Tensor:
-        rows = _rank_rows(s2.shape[1], mesh)
+        rows = rank_rows(s2.shape[1], mesh)
         x = _inputs({"S2": s2, "S1": s1}, mcfg, stats, slice(rows.u0, rows.u1), dev)
         score = _score(consts["builder"], x, mcfg, False)
         dense, _ = _member_block(to_torch(p, dev), consts, mcfg_member, x, score, rows, rows.u0)
@@ -331,7 +274,7 @@ def make_spatial_ensemble(mcfg: ModelConfig, consts: Tree, stats: Optional[NormS
     e = 0 if mesh is None else mesh.ensemble_index
     single = data_axis_size(mesh) == 1
 
-    def fold(local, x, score, rows: _Rows, acc, base: int, r0: int):
+    def fold(local, x, score, rows: Rows, acc, base: int, r0: int):
         sums = None
         for p in local:
             d, s = _member_block(p, consts, mcfg_member, x, score, rows, base)
@@ -341,7 +284,7 @@ def make_spatial_ensemble(mcfg: ModelConfig, consts: Tree, stats: Optional[NormS
             for k, v in zip(_ACC4, sums):
                 acc[k][rows.k0 - r0:rows.k1 - r0] += v[0]
 
-    def _strip_fold(local, x, score, rows: _Rows, acc, base: int):
+    def _strip_fold(local, x, score, rows: Rows, acc, base: int):
         """Big frames on one device: the member fold over strips of
         ``strip_rows`` kept rows, each with its halos of true context, so
         the temporaries are a strip's, not the frame's."""
@@ -352,7 +295,7 @@ def make_spatial_ensemble(mcfg: ModelConfig, consts: Tree, stats: Optional[NormS
     def fn(members: Sequence[Tree], sample: Dict, acc: Dict[str, torch.Tensor]):
         local = [to_torch(p, dev) for p in list(members)[e * per:(e + 1) * per]]
         hp = next(iter(sample.values())).shape[1]
-        rows = _rank_rows(hp, mesh)
+        rows = rank_rows(hp, mesh)
         x = _inputs(sample, mcfg, stats, slice(rows.u0, rows.u1), dev)
         if mcfg.sentinel_buildings or not mcfg.occupancy_model:
             # one rank chunks the builder on big frames; a rank's block is

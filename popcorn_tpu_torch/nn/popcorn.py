@@ -13,6 +13,14 @@ of the same math. As in the JAX package, the sparsity mask of training
 only restricts the scale regulariser: the head runs densely, and every
 pixel that can add to popcount lies in the mask.
 
+``ModelConfig.layout`` selects the JAX package's engine
+(popcorn_tpu/nn/popcorn.py::select_engine): every value it names,
+``LAYOUTS``, runs here on the one NHWC engine with kernels A-C, so the
+values give the same maps; another value raises (``check_config``), where
+the JAX package falls through to its packed or plain engine.
+``pallas_packed_head`` selects the JAX package's packed head kernel; here
+the head is kernel C whenever ``fused_head`` is set, whatever its value.
+
 Quantized eval (``cfg.quantize``, never in training) follows the JAX
 package's gates: 'int8' runs the member UNets' blocks through the dynamic
 int8 kernels on an unpadded input, and the building extractor too with
@@ -41,7 +49,7 @@ one plain engine the unfused route stands for both.
 
 from __future__ import annotations
 
-from typing import Any, Callable, Dict, Optional
+from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -76,6 +84,7 @@ def reorder_to_dda(x: torch.Tensor, *, s1: bool, s2: bool, nir: bool) -> torch.T
 
 
 QUANTIZE_MODES = ("int8", "int8s", "w4a8")
+LAYOUTS = ("auto", "packed", "wide", "spatial", "plain")
 COMPUTE_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
 
 
@@ -90,6 +99,9 @@ def check_config(cfg: ModelConfig) -> None:
     """Raise for model options the port does not run, or that conflict."""
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: one of {tuple(COMPUTE_DTYPES)}")
+    if cfg.layout not in LAYOUTS:
+        raise ValueError(f"layout={cfg.layout!r}: one of {LAYOUTS}, which all run the "
+                         "port's one NHWC engine")
     if cfg.quantize is not None and cfg.quantize not in QUANTIZE_MODES:
         raise ValueError(f"quantize={cfg.quantize!r}: one of {QUANTIZE_MODES} or None")
     if cfg.quantize and cfg.pallas_stream is False:
@@ -170,6 +182,7 @@ def sparsity_mask(
     *,
     occupancy: bool,
     any_fn: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    rows: Optional[Tuple[int, int, int]] = None,
 ) -> torch.Tensor:
     """The training sparsity mask (model/popcorn.py:361-377;
     popcorn_tpu/nn/popcorn.py::sparsity_mask).
@@ -184,20 +197,25 @@ def sparsity_mask(
     its mask through ``popcorn_forward(mask=...)``. Under data parallelism
     ``any_fn`` turns this rank's "is the mask empty" into the global
     batch's (every rank draws the same lattice from the same generator
-    state)."""
+    state). ``rows`` = (hp, k0, k1): the inputs are rows [k0, k1) of crops
+    of ``hp`` rows (a rank's block in spatial training); the lattice is
+    drawn over ``hp`` rows, rows then columns, as on one device, and its
+    rows [k0, k1) are kept, so the ranks' blocks together are the
+    one-device mask of the same generator state."""
     admin_sel = admin_mask == census_idx[:, None, None]
     if building_counts is not None and building_counts.dim() == 4:
         building_counts = building_counts[..., 0]
     m = (building_counts > 0) & admin_sel if occupancy else admin_sel
     _, h, w = m.shape
+    hp, k0, k1 = (h, 0, h) if rows is None else rows
     gdev = generator.device
-    xi = torch.randperm(h, generator=generator, device=gdev)[: min(60, h)]
+    xi = torch.randperm(hp, generator=generator, device=gdev)[: min(60, hp)]
     yi = torch.randperm(w, generator=generator, device=gdev)[: min(60, w)]
-    rows = torch.zeros(h, dtype=torch.bool, device=gdev)
+    lat_rows = torch.zeros(hp, dtype=torch.bool, device=gdev)
     cols = torch.zeros(w, dtype=torch.bool, device=gdev)
-    rows[xi] = True
+    lat_rows[xi] = True
     cols[yi] = True
-    lattice = (rows[:, None] & cols[None, :]).to(m.device)
+    lattice = (lat_rows[k0:k1, None] & cols[None, :]).to(m.device)
     m = (m | lattice[None]) & admin_sel
     nonempty = m.any() if any_fn is None else any_fn(m.any())
     return torch.where(nonempty, m, admin_sel)
@@ -228,6 +246,7 @@ def popcorn_forward(
     mask: Optional[torch.Tensor] = None,
     scales: Optional[Tree] = None,
     mask_any: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
+    keep: Optional[Tuple[slice, slice]] = None,
 ) -> Dict[str, Any]:
     """Full POPCORN forward pass (model/popcorn.py:100-193).
 
@@ -254,6 +273,11 @@ def popcorn_forward(
     member's static int8 scales (``calibrate_member_scales``), which the
     'int8s'/'w4a8' eval uses where it applies (module docstring).
     ``mask_any``: ``sparsity_mask``'s ``any_fn`` (data-parallel training).
+    ``keep``: the (rows, columns) of the UNet's output that the head, the
+    maps and the popcount take, and of the building score; 'admin_mask'
+    and ``mask`` are given at that shape. Spatial training runs a rank's
+    window and keeps its own rows (train/state.py), so no context row
+    reaches the head or the loss.
 
     Returns {'popcount': (B,), 'popdensemap': (B,H,W), 'scale': (B,H,W)
     or None, 'scale_abs_mean': mean |scale| (over the mask when sparse) or
@@ -271,6 +295,8 @@ def popcorn_forward(
         building_counts = inputs["building_counts"]
         if building_counts.dim() == 4:
             building_counts = building_counts[..., 0]
+    if keep is not None:
+        building_counts = building_counts[:, keep[0], keep[1]]
 
     if sparse and mask is None:
         if generator is None:
@@ -307,7 +333,10 @@ def popcorn_forward(
             remat=cfg.remat_unet and trainable,
             quantize=quantize_int8(cfg, train) and unpadded, dtype=dtype,
         )
-    feats = revert_padding(feats, pad).contiguous()
+    feats = revert_padding(feats, pad)
+    if keep is not None:
+        feats = feats[:, keep[0], keep[1]]
+    feats = feats.contiguous()
     if not (cfg.fused_head and feats.shape[-1] == 16):  # the kernels are 16-channel only
         out = head_unfused(params["head"], feats, dtype)[..., 0].float()
     elif train:

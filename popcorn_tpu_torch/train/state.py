@@ -35,10 +35,26 @@ global-norm clip sees the global gradient. Leaves frozen by a memory tier
 stay zero and out of the reduce. The sparsity mask's empty-batch test is
 the global batch's (``sparsity_mask(any_fn=)``), and the logged values
 are the global batch's, as in the JAX package's sharded step.
+
+Spatial training (``tcfg.spatial_train``): every rank holds every sample,
+but only its rows [u0, u1) of each crop (dist/mesh.py::shard_batch_spatial,
+which records them as 'row_block'). The rank runs the frozen builder over
+those rows and the member UNet over its window (dist/rows.py::
+member_window), keeps the features of its own rows [k0, k1) before the
+head, so no context row reaches the loss, and sums the crop's terms over
+the ranks: each sample's popcount and the scale regulariser's numerator
+through ``Mesh.sum_with_grad``, its denominator through an all-reduce. The
+context is at least the receptive field, so a rank's kept outputs depend
+on the parameters only through its own graph, and the sum of the ranks'
+gradient shares (``reduce_grads``) is the single-device gradient; the
+sparsity lattice is drawn over the whole crop and each rank keeps its
+rows. A rank whose block is empty adds nothing, and takes part in every
+collective.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Callable, Dict, List, Tuple
 
 import torch
@@ -46,8 +62,15 @@ import torch
 from ..config import ModelConfig, TrainConfig
 from ..data.normalize import NormStats, normalize_and_assemble, photometric_s2_traced
 from ..losses.losses import get_loss
+from ..dist.rows import Rows, member_window
 from ..nn.ops import float32_exact
-from ..nn.popcorn import popcorn_forward, popcorn_predict
+from ..nn.popcorn import (
+    compute_dtype,
+    create_building_score,
+    popcorn_forward,
+    popcorn_predict,
+    sparsity_mask,
+)
 
 Tree = Dict[str, Any]
 Path = Tuple[str, ...]
@@ -190,14 +213,18 @@ class TrainStep:
     update. batch: {'S2','S1' (B,H,W,C) raw, 'admin_mask' (B,H,W),
     'census_idx','y' (B,), 'photometric' (4,)} as tensors on one device,
     and under a ``mesh`` optionally 'valid' (B,) bool: this rank's rows of
-    the global batch (module docstring). ``mask`` (B,H,W) bool replaces
-    the drawn sparsity mask."""
+    the global batch (module docstring), or with 'row_block' this rank's
+    rows of every sample (spatial training). ``mask`` (B,H,W) bool, the
+    whole crops' under spatial training, replaces the drawn sparsity
+    mask."""
 
     def __init__(self, mcfg: ModelConfig, tcfg: TrainConfig, consts: Tree,
                  stats: NormStats, optimizer: Optimizer, mesh=None):
         self.mcfg, self.tcfg, self.consts = mcfg, tcfg, consts
         self.stats, self.optimizer = stats, optimizer
         self.mesh = mesh if mesh is not None and mesh.n_data > 1 else None
+        # a rank's window takes the builder's score of its rows as input
+        self.member_cfg = dataclasses.replace(mcfg, sentinel_buildings=False)
         self.unused: frozenset = frozenset()  # leaves of the last grads with no gradient
 
     def _global_any(self, t: torch.Tensor) -> torch.Tensor:
@@ -206,15 +233,20 @@ class TrainStep:
 
     def _global_terms(self, out, batch):
         """The global batch's popcounts and targets (valid rows) and scale
-        regulariser, differentiable through this rank's terms."""
+        regulariser, differentiable through this rank's terms: the samples
+        gathered from every rank, or under spatial training each sample's
+        popcount summed over the ranks' rows."""
         mesh = self.mesh
         pc = out["popcount"]
         valid = batch.get("valid")
         v = (torch.ones(pc.shape[0], dtype=torch.bool, device=pc.device) if valid is None
              else torch.as_tensor(valid, device=pc.device).bool())
-        keep = mesh.all_gather(v.to(torch.uint8)).bool()
-        popcount = mesh.gather_rows_with_grad(pc)[keep]
-        y = mesh.all_gather(torch.as_tensor(batch["y"], device=pc.device).float())[keep]
+        if "row_block" in batch:
+            popcount, y = mesh.sum_with_grad(pc), batch["y"]
+        else:
+            keep = mesh.all_gather(v.to(torch.uint8)).bool()
+            popcount = mesh.gather_rows_with_grad(pc)[keep]
+            y = mesh.all_gather(torch.as_tensor(batch["y"], device=pc.device).float())[keep]
         sam = None
         if out["scale"] is not None:
             w = out["sparsity_mask"] & v[:, None, None]
@@ -223,13 +255,52 @@ class TrainStep:
             sam = num / torch.clamp(den, min=1)
         return popcount, y, sam
 
-    def loss_fn(self, params, batch, generator, encoder_no_grad, unet_no_grad, mask):
-        out = popcorn_forward(
-            params, self.consts, _model_inputs(self.mcfg, self.stats, batch, True),
-            self.mcfg, train=True, padding=False, encoder_no_grad=encoder_no_grad,
-            unet_no_grad=unet_no_grad, sparse=True, generator=generator, mask=mask,
-            mask_any=None if self.mesh is None else self._global_any,
+    def _block_forward(self, params, batch, generator, encoder_no_grad, unet_no_grad, mask):
+        """The forward of this rank's rows of every crop (module
+        docstring): popcorn_forward's outputs over the kept rows."""
+        mcfg = self.mcfg
+        hp, k0, k1, u0, _ = batch["row_block"]
+        inputs = _model_inputs(mcfg, self.stats, batch, True)
+        x = inputs["input"]
+        if k0 == k1:  # no rows here
+            score = x.new_zeros(x.shape[:3])
+        elif "building_counts" not in inputs or mcfg.sentinel_buildings:
+            score = create_building_score(self.consts["builder"], x, s1=mcfg.s1, s2=mcfg.s2,
+                                          nir=mcfg.nir, dtype=compute_dtype(mcfg))
+        else:
+            score = inputs["building_counts"]
+            score = score[..., 0] if score.dim() == 4 else score
+        kept = slice(k0 - u0, k1 - u0)
+        admin = inputs["admin_mask"][:, kept]
+        if mask is None:
+            mask = sparsity_mask(generator, score[:, kept], admin, inputs["census_idx"],
+                                 occupancy=mcfg.occupancy_model, any_fn=self._global_any,
+                                 rows=(hp, k0, k1))
+        else:
+            mask = mask[:, k0:k1]
+        if k0 == k1:  # zero terms, no graph
+            zero = x.new_zeros((x.shape[0], 0, x.shape[2]))
+            return {"popcount": x.new_zeros(x.shape[0]), "sparsity_mask": mask,
+                    "scale": zero if mcfg.occupancy_model else None}
+        xw, sw, keep, cols = member_window(x, score, Rows(hp, k0, k1), u0)
+        return popcorn_forward(
+            params, self.consts, {"input": xw, "building_counts": sw, "admin_mask": admin,
+                                  "census_idx": inputs["census_idx"]},
+            self.member_cfg, train=True, padding=None, encoder_no_grad=encoder_no_grad,
+            unet_no_grad=unet_no_grad, sparse=True, mask=mask, keep=(keep, cols),
         )
+
+    def loss_fn(self, params, batch, generator, encoder_no_grad, unet_no_grad, mask):
+        if self.mesh is not None and "row_block" in batch:
+            out = self._block_forward(params, batch, generator, encoder_no_grad, unet_no_grad,
+                                      mask)
+        else:
+            out = popcorn_forward(
+                params, self.consts, _model_inputs(self.mcfg, self.stats, batch, True),
+                self.mcfg, train=True, padding=False, encoder_no_grad=encoder_no_grad,
+                unet_no_grad=unet_no_grad, sparse=True, generator=generator, mask=mask,
+                mask_any=None if self.mesh is None else self._global_any,
+            )
         if self.mesh is None:
             popcount, y, sam = out["popcount"], batch["y"], out["scale_abs_mean"]
         else:
@@ -241,7 +312,8 @@ class TrainStep:
         )
         optim_loss = loss * self.tcfg.lam_weak
         aux["optimization_loss"] = optim_loss
-        aux["popcount"] = out["popcount"]
+        # a rank's own samples; the crop's under spatial training
+        aux["popcount"] = popcount if "row_block" in batch else out["popcount"]
         return optim_loss, aux
 
     def _value_and_grad(self, params, batch, generator, enc, unet, mask):
@@ -249,7 +321,9 @@ class TrainStep:
         leaves = [v.detach().requires_grad_(True) for _, v in flat]
         tparams = tree_unflatten((p, q) for (p, _), q in zip(flat, leaves))
         loss, aux = self.loss_fn(tparams, batch, generator, enc, unet, mask)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
+        # a spatial rank with no rows has a loss without a graph
+        grads = (torch.autograd.grad(loss, leaves, allow_unused=True) if loss.requires_grad
+                 else [None] * len(leaves))
         self.unused = frozenset(p for (p, _), d in zip(flat, grads) if d is None)
         # a frozen leaf's gradient is zero, not None (see the module doc)
         grads = [torch.zeros_like(q) if d is None else d for q, d in zip(leaves, grads)]
@@ -295,16 +369,19 @@ class TrainStep:
 
     def reduce_grads(self, grads: Tree) -> Tree:
         """The sum of every rank's gradient shares: one all-reduce over a
-        flat buffer of the leaves that had a gradient in the last ``grads``
-        (frozen leaves stay zero and out of it)."""
+        flat buffer of the leaves that had a gradient on some rank in the
+        last ``grads`` (frozen leaves stay zero and out of it; a spatial
+        rank with no rows has none)."""
         flat = tree_flatten(grads)
-        live = [g for p, g in flat if p not in self.unused]
+        used = torch.tensor([p not in self.unused for p, _ in flat], dtype=torch.int32)
+        used = self.mesh.all_reduce(used, op=torch.distributed.ReduceOp.MAX).bool().tolist()
+        live = [g for (_, g), u in zip(flat, used) if u]
         if not live:
             return grads
         buf = self.mesh.all_reduce(torch.cat([g.reshape(-1) for g in live]))
         out, off = [], 0
-        for p, g in flat:
-            if p not in self.unused:
+        for (p, g), u in zip(flat, used):
+            if u:
                 g = buf[off:off + g.numel()].view_as(g)
                 off += g.numel()
             out.append((p, g))

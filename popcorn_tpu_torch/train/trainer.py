@@ -18,8 +18,15 @@ uploads only its rows (``shard_batch``; the device feed assembles only
 them) and runs the data-parallel step (train/state.py). Rank 0 broadcasts
 the parameters first, so replicas start equal; the logged popcounts and
 targets are gathered; only rank 0 writes logs, checkpoints and maps.
-Not ported yet: spatial training (``spatial_train``, ROADMAP.md Queue 1
-item 17); ``TrainConfig.check`` raises for it.
+
+Spatial training (``spatial_train``, the JAX trainer's row-sharded mesh):
+the ranks of the grid split each crop's ROWS instead of the batch. Every
+rank reads the same global batches from the host feed, uploads only its
+rows and their context (``shard_batch_spatial``) and runs the spatial
+step (train/state.py); the memory tiers count the whole crop, the batch
+need not divide over the ranks, and the logged popcounts are the crops'.
+The grid is ``data_parallel`` ranks, or without it the launched ranks (the
+CLI spawns one a card), so one card is one rank and the plain step.
 """
 
 from __future__ import annotations
@@ -47,6 +54,7 @@ from ..data.device_weaksup import DeviceWeaksupFeed, Ineligible, resident_layout
 from ..data.feed import WeaksupFeed
 from ..data.feed_select import gate_mode, gate_report, gather_gate_inputs, prefer_rotation
 from ..data.normalize import NormStats
+from ..dist.launch import under_launcher
 from ..dist.mesh import (
     devices_for,
     fetch_to_host,
@@ -55,6 +63,7 @@ from ..dist.mesh import (
     pad_batch_to_multiple,
     replicate,
     shard_batch,
+    shard_batch_spatial,
 )
 from ..infer.sliding import _upload, resolve_device, run_sliding_inference
 from ..io.geotiff import GeoTIFF
@@ -80,6 +89,9 @@ TRAIN_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx"
 VAL_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx")
 # the keys of a training batch that carry one row per sample
 SHARD_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx", "y")
+# the image keys whose rows split over the ranks under spatial training
+# (popcorn_tpu/train/trainer.py's row_keys)
+ROW_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask")
 
 
 class _NoLogger:
@@ -105,8 +117,8 @@ class Trainer:
         inference_overlap: int = 128,
         test_patch_batch: int = 1,
         device="cuda",
+        mesh=None,
     ):
-        tcfg.check()
         check_config(mcfg)
         self.device = resolve_device(device)
         self.paths = paths
@@ -116,16 +128,21 @@ class Trainer:
         self.inference_overlap = inference_overlap
         self.test_patch_batch = test_patch_batch
 
-        # data-parallel ranks: the batch's rows split over 'data', the
-        # parameters replicated (module docstring). Created before the feed
-        # so the device-resident feed can assemble this rank's rows.
-        self.mesh = None
-        if tcfg.multihost or tcfg.data_parallel > 1:
+        # data-parallel ranks: the batch's rows split over 'data' (or each
+        # crop's rows under spatial training), the parameters replicated
+        # (module docstring). Created before the feed so the device-resident
+        # feed can assemble this rank's rows. ``mesh`` gives the grid (as
+        # the Evaluator takes one: ranks that share a card); else it is
+        # built from the config, as the CLI's ranks do.
+        self.mesh = mesh
+        if mesh is None and (tcfg.multihost or tcfg.data_parallel > 1
+                             or (tcfg.spatial_train and under_launcher())):
             n = tcfg.data_parallel if tcfg.data_parallel > 1 else None
             devs = devices_for(self.device)
             self.mesh = (make_multihost_mesh(n, devices=devs) if tcfg.multihost
                          else make_mesh(n, devices=devs))
-            if tcfg.weak_batch_size % self.mesh.n_data:
+        if self.mesh is not None:
+            if not tcfg.spatial_train and tcfg.weak_batch_size % self.mesh.n_data:
                 raise ValueError(
                     f"weak_batch_size ({tcfg.weak_batch_size}) must be divisible "
                     f"by the data mesh size ({self.mesh.n_data})"
@@ -182,11 +199,14 @@ class Trainer:
         # the chosen feed ('resident', 'rotating' or 'host') and the cost
         # gate's report when it ran
         self.feed, self.feed_choice, self.gate_report = None, "host", None
-        if tcfg.device_feed == "on" and tcfg.multihost:
-            # the JAX trainer's gate: cross-host residency is unproven
-            raise Ineligible("--device_feed on requires a single-host run (multihost "
-                             "batches are not assembled on the device)")
-        if tcfg.device_feed != "off" and not tcfg.multihost:
+        # the JAX trainer's gate: cross-host residency is unproven, and the
+        # device feed assembles a batch's samples, not a crop's rows
+        host_only = tcfg.multihost or tcfg.spatial_train
+        if tcfg.device_feed == "on" and host_only:
+            raise Ineligible("--device_feed on requires a single-host run without "
+                             "--spatial_train (multihost and spatial batches are not "
+                             "assembled on the device)")
+        if tcfg.device_feed != "off" and not host_only:
             # device-resident data plane: mosaics upload once, batch
             # assembly (crop + mask + geometric augs) runs on the device
             try:
@@ -338,12 +358,17 @@ class Trainer:
             flags = self._tier_flags(batch)
             if flags is None:
                 continue
-            if self.mesh is not None and "rows" not in batch:
+            if self.tcfg.spatial_train:
+                batch = shard_batch_spatial(batch, self.mesh, row_keys=ROW_KEYS)
+            elif self.mesh is not None and "rows" not in batch:
                 batch = shard_batch(
                     pad_batch_to_multiple(batch, self.mesh.n_data * n_micro, SHARD_KEYS),
                     self.mesh, batch_keys=SHARD_KEYS, n_micro=n_micro,
                 )
-            nxt = (_upload(batch, self.device, TRAIN_KEYS), batch, flags)
+            dev_batch = _upload(batch, self.device, TRAIN_KEYS)
+            if "row_block" in batch:
+                dev_batch["row_block"] = batch["row_block"]
+            nxt = (dev_batch, batch, flags)
             if prev is not None:
                 yield prev
             prev = nxt
@@ -375,7 +400,7 @@ class Trainer:
             if watch is not None:
                 self.log_watch(watch)
             pred, target = aux.pop("popcount"), dev_batch["y"]
-            if self.mesh is not None:
+            if self.mesh is not None and "row_block" not in batch:
                 # every rank's rows, in rank order (the JAX trainer's
                 # fetch_to_host of the sharded popcount)
                 keep = fetch_to_host(torch.as_tensor(batch.get("valid", np.ones(len(pred), bool)),

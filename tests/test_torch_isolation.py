@@ -21,7 +21,8 @@ FORBIDDEN = ("jax", "jaxlib", "ml_dtypes", "optax", "orbax", "popcorn_tpu")
 NO_PANDAS = ("dda/datasets.py", "dda/losses.py", "dda/metrics.py", "dda/network.py",
              "dda/train.py", "infer/timeseries.py", "infer/pop_timeseries.py",
              "cli/timeseries.py", "cli/dda_train.py", "dist/mesh.py", "dist/launch.py",
-             "dist/multihost.py", "infer/spatial.py")
+             "dist/multihost.py", "dist/rows.py", "infer/spatial.py", "utils/flops.py",
+             "utils/profiling.py")
 
 
 def _sources():
@@ -84,8 +85,8 @@ def test_every_module_imports_without_jax():
 
 
 def test_rank_layer_import_starts_no_process_group():
-    """dist/mesh.py, dist/launch.py, dist/multihost.py and infer/spatial.py
-    import without jax and leave torch.distributed uninitialised: ranks
+    """dist/mesh.py, dist/launch.py, dist/multihost.py, dist/rows.py and
+    infer/spatial.py import without jax and leave torch.distributed uninitialised: ranks
     join a group only through init_distributed (or the CLIs' spawn)."""
     code = textwrap.dedent(
         """
@@ -102,6 +103,7 @@ def test_rank_layer_import_starts_no_process_group():
         import popcorn_tpu_torch.dist.launch
         import popcorn_tpu_torch.dist.mesh as mesh
         import popcorn_tpu_torch.dist.multihost
+        import popcorn_tpu_torch.dist.rows
         import popcorn_tpu_torch.infer.spatial
         assert not dist.is_initialized()
         m = mesh.make_mesh(devices=["cpu"])

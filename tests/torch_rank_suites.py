@@ -1,8 +1,9 @@
-"""What each of two gloo CPU ranks runs for tests/test_torch_dist.py and
-tests/test_torch_spatial.py: one spawn a test module (its fixture), every
-ranked path of the port on inputs the fixture wrote, results written by
-rank 0 (or by each rank where a rank's own share is checked). This module
-imports torch and the port only: the spawned ranks never import jax."""
+"""What each of two gloo CPU ranks runs for tests/test_torch_dist.py,
+tests/test_torch_spatial.py and tests/test_torch_spatial_train.py: one
+spawn a test module (its fixture), every ranked path of the port on inputs
+the fixture wrote, results written by rank 0 (or by each rank where a
+rank's own share is checked). This module imports torch and the port only:
+the spawned ranks never import jax."""
 
 import json
 import os
@@ -142,3 +143,76 @@ def spatial_suite(root):
     ds.close()
     if rank == 0:
         _save(root, "spatial.pt", out)
+
+
+# the image keys whose rows split over the ranks (train/trainer.py::ROW_KEYS)
+ROW_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask")
+
+
+def spatial_step(mesh, batch, params, consts, mask=None, seed=3):
+    """One train step of ``batch`` (numpy, whole crops) with this rank's
+    rows of each crop (``mesh``; None: one rank, the plain step), the JAX
+    weights' ModelConfig and a sparsity mask drawn from ``seed`` unless
+    ``mask`` (the whole crops') is given: TrainStep.__call__'s gradients,
+    summed over the ranks, and update. Returns (loss, popcount, the
+    gradients and the stepped parameters by path)."""
+    from popcorn_tpu_torch.config import ModelConfig, TrainConfig
+    from popcorn_tpu_torch.data.normalize import NormStats
+    from popcorn_tpu_torch.dist.mesh import shard_batch_spatial
+    from popcorn_tpu_torch.train.state import make_optimizer, make_train_step, tree_flatten
+
+    tcfg = TrainConfig()
+    opt = make_optimizer(tcfg)
+    step = make_train_step(ModelConfig(pretrained=False, biasinit=0.9407), tcfg, consts,
+                           NormStats(device="cpu"), opt, mesh=mesh)
+    b = shard_batch_spatial(batch, mesh, row_keys=ROW_KEYS)
+    tb = {k: (torch.from_numpy(v) if isinstance(v, np.ndarray) else v) for k, v in b.items()}
+    grads, aux = step.grads(params, tb, torch.Generator().manual_seed(seed), mask=mask)
+    if step.mesh is not None:
+        grads = step.reduce_grads(grads)
+    new, _ = opt.update(grads, opt.init(params), params)
+    return (float(aux["optimization_loss"]), aux["popcount"].numpy(), dict(tree_flatten(grads)),
+            dict(tree_flatten(new)))
+
+
+def spatial_train_suite(root):
+    torch.set_num_threads(1)
+    from popcorn_tpu_torch.config import DataPaths, ModelConfig, TrainConfig
+    from popcorn_tpu_torch.dist.mesh import make_mesh
+    from popcorn_tpu_torch.train.state import tree_flatten
+    from popcorn_tpu_torch.train.trainer import Trainer
+
+    rank = dist.get_rank()
+    spec = json.load(open(os.path.join(root, "spec.json")))
+    state = torch.load(os.path.join(root, "state.pt"))
+    mesh = make_mesh(2, devices=CPU2)
+    out = {}
+    # the step on each crop: with the JAX package's mask, and drawn
+    for name, mask_name in spec["steps"].items():
+        batch = dict(np.load(os.path.join(root, f"crop_{name}.npz")))
+        mask = None if mask_name is None else state["masks"][mask_name]
+        out[name] = spatial_step(mesh, batch, state["params"], state["consts"], mask)
+        out[f"row_block_{name}_{rank}"] = shard_batch_spatial_rows(batch, mesh)
+
+    # the trainer on the grid it is given (the train CLI's ranks build
+    # theirs): rows over the two ranks, the host feed
+    tcfg = TrainConfig(**spec["trainer"], spatial_train=True, save_dir=os.path.join(root, "train"))
+    tr = Trainer(DataPaths(spec["train_data"]), ModelConfig(pretrained=False, biasinit=0.9407),
+                 tcfg, inference_patch=128, inference_overlap=16, device="cpu", mesh=mesh)
+    dev_b, host_b, _ = next(tr._lookahead_batches(0))
+    tr.train_epoch()
+    flat = dict(tree_flatten(tr.params))
+    same = all([bool(torch.equal(v, mesh.broadcast(v.clone()))) for v in flat.values()])
+    out[f"trainer_{rank}"] = {"n_data": tr.mesh.n_data, "feed": tr.feed_choice,
+                              "row_block": dev_b["row_block"], "rows": dev_b["S2"].shape[1],
+                              "crop": host_b["S2"].shape[1], "same": same}
+    if rank == 0:
+        out["trainer"] = {"losses": train_losses(tr), "params": flat}
+    torch.save(out, os.path.join(root, f"spatial_train_{rank}.pt"))
+
+
+def shard_batch_spatial_rows(batch, mesh):
+    """The 'row_block' that dist/mesh.py::shard_batch_spatial gives this rank."""
+    from popcorn_tpu_torch.dist.mesh import shard_batch_spatial
+
+    return shard_batch_spatial(batch, mesh, row_keys=ROW_KEYS)["row_block"]
