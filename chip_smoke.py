@@ -131,8 +131,23 @@ Phases, each printing one JSON line:
                rank's; then the train CLI's --spatial_train on the same two
                ranks against the one-rank CLI (first loss at the bf16
                bound), rank 0 alone writing last_model.pth, which the eval
-               CLI turns into finite maps.
-Each of phases 9-13 prints its wall seconds.
+               CLI turns into finite maps;
+ 14. prep    — a region built by the port's tools (popcorn_tpu_torch/
+               tools/, each run as ``python -m``) from the main region:
+               its coarse and fine admin rectangles as GeoJSON polygons
+               with a census CSV through preprocess_census (boundary rasters
+               bit-equal, census idx, bbox, count and POP20 equal), its
+               season mosaics cut into raw tiles and merged by merge_tiffs
+               (bit-equal, uint16 and float32 with NaNs), their sidecars by
+               build_raster_cache (byte-equal to the direct reader); the
+               bf16 5-member eval on it, its device feed reading the
+               sidecars (exactly MAIN_LAUNCHES a patch), against the same
+               eval on the region as written: the five GeoTIFFs bit-equal and
+               the census metrics equal; then parity_released --selftest on
+               the card (A-C in float32, E and F under int8s, the eval CLI's
+               metrics equal to the harness's) and dryrun_multichip(2) on two
+               ranks of cuda:0 over gloo.
+Each of phases 9-14 prints its wall seconds.
 Kernel D (the head backward) is checked in phase 3 at the train phase's
 bucket shape (2x1024x1024), at 2x2048^2 and at a spatial rank's kept rows
 (1x2048x2048, as kernel C's 2-channel forward). Then the {"kernels": [...]}
@@ -862,6 +877,185 @@ def spatial_train_cli(argv: list, out: str) -> None:
                                 "head": C.launches, "head_bwd": C.bwd_launches}}, f)
 
 
+# prep: the tool-built region's tiles, a grid of PREP_TILES row x column
+# bands of unequal sizes (the raw tiles a download leaves)
+PREP_TILES = (2, 3)
+
+
+def run_tool(name: str, *args) -> float:
+    """``python -m popcorn_tpu_torch.tools.<name> args`` as a user runs it,
+    from the checkout's root; returns its wall seconds. Raises with the
+    tool's output when it exits non-zero."""
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", f"popcorn_tpu_torch.tools.{name}", *args], cwd=HERE,
+                       stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if r.returncode != 0:
+        raise AssertionError(f"tools.{name} {list(args)} exited {r.returncode}:\n{r.stdout[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def bits(a):
+    """The array's bytes as unsigned integers of its width: equal bits, NaNs
+    included."""
+    import numpy as np
+
+    a = np.ascontiguousarray(a)
+    return a.view({1: np.uint8, 2: np.uint16, 4: np.uint32, 8: np.uint64}[a.dtype.itemsize])
+
+
+def same_bits(a, b) -> bool:
+    return a.dtype == b.dtype and a.shape == b.shape and bool((bits(a) == bits(b)).all())
+
+
+def admin_layers(data: str, out: str) -> dict:
+    """Phase prep, step 1: each admin level of the synthetic region ``data``
+    (its census rows' rectangles, data/synthetic.py) as GeoJSON polygons in
+    world coordinates through the S2 mosaic's transform, on whole pixel
+    edges, with a census CSV keyed by ADM. Returns {level: (geojson, csv,
+    the tool's level name)}. The first rectangle is rasterized alone first
+    (geo/rasterize.py::rasterize_polygon) and must fill exactly its pixels."""
+    import numpy as np
+    import pandas as pd
+
+    from popcorn_tpu_torch.config import DATALOCATIONS, SEASONS, DataPaths
+    from popcorn_tpu_torch.data.dataset import parse_bbox
+    from popcorn_tpu_torch.geo.rasterize import rasterize_polygon
+    from popcorn_tpu_torch.io.geotiff import GeoTIFF
+
+    paths = DataPaths(data)
+    with GeoTIFF(paths.modality_path("rwa", "S2", SEASONS[0])) as g:
+        ox, pw, _, oy, _, ph = g.transform
+        shape = g.shape
+    os.makedirs(out, exist_ok=True)
+    layers = {}
+    for level, files in DATALOCATIONS["rwa"].items():
+        census = pd.read_csv(paths.census_path("rwa", level))
+        feats = []
+        for row in census.itertuples():
+            r0, r1, c0, c1 = parse_bbox(row.bbox)
+            if row.count != (r1 - r0) * (c1 - c0):
+                raise AssertionError(f"{level} region {row.idx} is not its bbox's rectangle")
+            ring = [[ox + c * pw, oy + r * ph] for r, c in ((r0, c0), (r0, c1), (r1, c1), (r1, c0), (r0, c0))]
+            feats.append({"type": "Feature", "properties": {"ADM": f"R{row.idx}"},
+                          "geometry": {"type": "Polygon", "coordinates": [ring]}})
+        if not layers:
+            rings = [np.asarray(feats[0]["geometry"]["coordinates"][0], np.float64)]
+            r0, r1, c0, c1 = parse_bbox(census.bbox[0])
+            want = np.zeros(shape, bool)
+            want[r0:r1, c0:c1] = True
+            got = rasterize_polygon(rings, shape, (ox, pw, oy, ph))
+            if not np.array_equal(got, want):
+                raise AssertionError(f"region {census.idx[0]}: the rasterized rectangle fills "
+                                     f"{int(got.sum())} pixels, {int((got != want).sum())} of "
+                                     "them off its bbox")
+        gj, csv = os.path.join(out, f"adm_{level}.geojson"), os.path.join(out, f"census_{level}.csv")
+        with open(gj, "w") as f:
+            json.dump({"type": "FeatureCollection", "features": feats}, f)
+        pd.DataFrame({"ADM": [f"R{i}" for i in census.idx], "POP20": census.POP20}).to_csv(csv, index=False)
+        tool_level = files["boundary"][len("boundaries_"):-len(".tif")]
+        layers[level] = (gj, csv, tool_level)
+    return layers
+
+
+def cut_tiles(data: str, prep: str) -> int:
+    """Phase prep, step 3: each season mosaic of ``data`` cut into
+    PREP_TILES raw tiles under ``prep``'s raw_tile_dir, in its dtype (S2
+    uint16, S1 float32 with its NaN nodata) and georeferenced. Returns the
+    number of tiles written."""
+    import numpy as np
+
+    from popcorn_tpu_torch.config import SEASONS, DataPaths
+    from popcorn_tpu_torch.io.geotiff import GeoTIFF, write_geotiff
+
+    src, dst = DataPaths(data), DataPaths(prep)
+    n = 0
+    for season in SEASONS:
+        for mod in ("S2", "S1"):
+            with GeoTIFF(src.modality_path("rwa", mod, season)) as g:
+                a = g.read(None, raw=True)
+                ox, pw, _, oy, _, ph = g.transform
+                nodata = g.nodata
+            # band edges off the even split by 7 px a band
+            rows, cols = ([0, *(n * i // k + 7 * i for i in range(1, k)), n]
+                          for n, k in zip(a.shape[1:], PREP_TILES))
+            tdir = dst.raw_tile_dir("rwa", mod, season)
+            os.makedirs(tdir, exist_ok=True)
+            for i in range(PREP_TILES[0]):
+                for j in range(PREP_TILES[1]):
+                    r0, r1, c0, c1 = rows[i], rows[i + 1], cols[j], cols[j + 1]
+                    write_geotiff(os.path.join(tdir, f"tile_{i}_{j}.tif"), a[:, r0:r1, c0:c1],
+                                  transform=(ox + c0 * pw, pw, oy + r0 * ph, -ph), nodata=nodata,
+                                  dtype=a.dtype)
+                    n += 1
+    return n
+
+
+def prep_region(data: str, tmp: str) -> tuple:
+    """Phase prep, steps 1-4: a region built by the port's tools from the
+    synthetic region ``data`` (its admin rectangles, census values and
+    season mosaics), each tool run as a user runs it, with every product
+    held to ``data``'s. Returns (the new data root, the phase record, the
+    checks by name)."""
+    import numpy as np
+    import pandas as pd
+
+    from popcorn_tpu_torch.config import SEASONS, DataPaths
+    from popcorn_tpu_torch.data.dataset import parse_bbox
+    from popcorn_tpu_torch.io import raster_cache
+    from popcorn_tpu_torch.io.geotiff import GeoTIFF
+
+    src = DataPaths(data)
+    prep = os.path.join(tmp, "prep_data")
+    dst = DataPaths(prep)
+    secs, checks = {}, {}
+    t0 = time.perf_counter()
+    layers = admin_layers(data, os.path.join(tmp, "prep_inputs"))
+    secs["layers"] = time.perf_counter() - t0
+    template = src.modality_path("rwa", "S2", SEASONS[0])
+    out_dir = os.path.dirname(dst.boundary_path("rwa", "coarse"))
+    census_rows = {}
+    for level, (gj, csv, tool_level) in layers.items():
+        secs[f"preprocess_census_{level}"] = run_tool(
+            "preprocess_census", "--boundaries", gj, "--census", csv, "--join-col", "ADM",
+            "--pop-col", "POP20", "--template", template, "--out-dir", out_dir, "--level", tool_level)
+        with GeoTIFF(dst.boundary_path("rwa", level)) as g:
+            got, got_t = g.read(1, squeeze=True), g.transform
+        with GeoTIFF(src.boundary_path("rwa", level)) as g:
+            want, want_t = g.read(1, squeeze=True), g.transform
+        checks[f"boundaries_{level}"] = same_bits(got, want) and got_t == want_t
+        a = pd.read_csv(dst.census_path("rwa", level))
+        b = pd.read_csv(src.census_path("rwa", level))
+        checks[f"census_{level}"] = bool(
+            list(a.idx) == list(b.idx) and list(a.POP20) == list(b.POP20)
+            and list(a["count"]) == list(b["count"])
+            and [parse_bbox(s) for s in a.bbox] == [parse_bbox(s) for s in b.bbox])
+        census_rows[level] = len(a)
+    t0 = time.perf_counter()
+    n_tiles = cut_tiles(data, prep)
+    secs["cut_tiles"] = time.perf_counter() - t0
+    secs["merge_tiffs"] = run_tool("merge_tiffs", "--data_root", prep, "--region", "rwa")
+    mosaics = [(mod, season) for season in SEASONS for mod in ("S2", "S1")]
+    merged = {}
+    for mod, season in mosaics:
+        with GeoTIFF(dst.modality_path("rwa", mod, season)) as g:
+            got, got_t = g.read(None, raw=True), g.transform
+        with GeoTIFF(src.modality_path("rwa", mod, season)) as g:
+            want, want_t = g.read(None, raw=True), g.transform
+        merged[f"{mod}{season}"] = str(got.dtype)
+        checks[f"merged_{mod}{season}"] = same_bits(got, want) and got_t == want_t
+    secs["build_raster_cache"] = run_tool("build_raster_cache", "--data_root", prep, "--region", "rwa")
+    for mod, season in mosaics:
+        path = dst.modality_path("rwa", mod, season)
+        mm = raster_cache.open_cache(path)
+        with GeoTIFF(path) as g:
+            direct = g.read(None, raw=True)
+        checks[f"sidecar_{mod}{season}"] = mm is not None and same_bits(np.asarray(mm), direct)
+    rec = {"region": list(want.shape[1:]), "levels": {
+        level: {"tool_level": tl, "regions": census_rows[level]} for level, (_, _, tl) in layers.items()},
+        "tiles": n_tiles, "mosaics": merged, "seconds": secs}
+    return prep, rec, checks
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--kernels", action="store_true", help="stop after the kernel checks")
@@ -1478,15 +1672,16 @@ def main() -> None:
 
         n_patches = 4  # patch grid of a 2304x2560 region at 2048/128
 
-        def run_eval(tag, extra=(), want=None, config=None, timings=None, units=n_patches):
-            """One eval of the 5 members, from a folder of links to them
-            where it writes its outputs: through the eval CLI with the
-            ``extra`` flags, or through the Evaluator with ``config`` (a
-            function of the CLI's ModelConfig). Launch counts are checked
-            against ``want`` per patch (per ``units``: the whole-frame eval
-            has one a season); ``timings`` receives the sliding window's
-            split. Returns the stats, wall seconds, launches and the output
-            folder's glob."""
+        def run_eval(tag, extra=(), want=None, config=None, timings=None, units=n_patches,
+                     root=data):
+            """One eval of the 5 members on the region at ``root``, from a
+            folder of links to them where it writes its outputs: through the
+            eval CLI with the ``extra`` flags, or through the Evaluator with
+            ``config`` (a function of the CLI's ModelConfig). Launch counts
+            are checked against ``want`` per patch (per ``units``: the
+            whole-frame eval has one a season); ``timings`` receives the
+            sliding window's split. Returns the stats, wall seconds,
+            launches and the output folder's glob."""
             from popcorn_tpu_torch.cli.args import eval_config_from_args, eval_parser, model_config_from_args
             from popcorn_tpu_torch.config import DataPaths
             from popcorn_tpu_torch.infer.evaluator import Evaluator
@@ -1497,7 +1692,7 @@ def main() -> None:
             for m in members:
                 links.append(os.path.join(mdir, os.path.basename(m)))
                 os.symlink(m, links[-1])
-            argv = ["--data_root", data, *eval_flags, "-r", *links, *extra]
+            argv = ["--data_root", root, *eval_flags, "-r", *links, *extra]
             reset_launches()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
@@ -1505,7 +1700,7 @@ def main() -> None:
                 out = eval_cli.main(argv, timings=timings)
             else:
                 a = eval_parser().parse_args(argv)
-                out = Evaluator(DataPaths(data), config(model_config_from_args(a)),
+                out = Evaluator(DataPaths(root), config(model_config_from_args(a)),
                                 eval_config_from_args(a), device=dev).test_target(
                                     save=True, timings=timings)
             torch.cuda.synchronize()
@@ -2553,6 +2748,84 @@ def main() -> None:
             raise AssertionError(f"phase spatial_train: steps {steps_ok}, cli {cli_ok}")
         if tdist.is_initialized():
             raise AssertionError("phase spatial_train left a process group up")
+
+        # ---------------------------------------------------------------- 14. prep
+        # steps 1-4: a region built by the port's tools (prep_region); 5:
+        # the bf16 Bag eval on it, its device feed reading the sidecars,
+        # against the same eval on the region as written (no sidecar); 6:
+        # the parity harness's selftest on the card; 7: the multichip dry
+        # run on two ranks of cuda:0 over gloo
+        from popcorn_tpu_torch.dryrun import dryrun_multichip
+        from popcorn_tpu_torch.io import raster_cache
+
+        t_phase = time.perf_counter()
+        prep_data, prep_rec, prep_checks = prep_region(data, tmp)
+        open_cache = raster_cache.open_cache
+        sidecar_reads = [0]
+
+        def counted_open_cache(path):
+            mm = open_cache(path)
+            sidecar_reads[0] += mm is not None
+            return mm
+
+        prep_evals = {}
+        raster_cache.open_cache = counted_open_cache
+        try:
+            for tag, root in (("tools", prep_data), ("as_written", data)):
+                sidecar_reads[0] = 0
+                split_p = {}
+                st_p, wall_p, l_p, glob_p = run_eval(f"prep_{tag}", want=MAIN_LAUNCHES,
+                                                     timings=split_p, root=root)
+                prep_evals[tag] = {"stats": st_p, "glob": glob_p, "wall_s": wall_p,
+                                   "launches": {k: v for k, v in l_p.items() if v},
+                                   "sidecar_reads": sidecar_reads[0], "timings": split_p["rwa"]}
+        finally:
+            raster_cache.open_cache = open_cache
+        ev_t, ev_w = prep_evals["tools"], prep_evals["as_written"]
+        for tag in ("", "STD", "SCALE_rwa", "SCALE_STD", "ADJ_rwa"):
+            maps = []
+            for ev in (ev_t, ev_w):
+                with GeoTIFF(os.path.join(glob.glob(ev["glob"])[0], f"rwa_predictions{tag}.tif")) as gt:
+                    maps.append(gt.read(1, squeeze=True))
+            prep_checks[f"geotiff_{tag or 'map'}"] = same_bits(*maps)
+        prep_checks["census_metrics"] = ev_t["stats"] == ev_w["stats"]
+        prep_checks["sidecars_read"] = ev_t["sidecar_reads"] > 0 and ev_w["sidecar_reads"] == 0
+        prep_checks["device_feed"] = ev_t["timings"].get("n_device_patches") == n_patches
+        # 6. the selftest as a user runs it: its last line is its record
+        t0 = time.perf_counter()
+        r = subprocess.run([sys.executable, "-m", "popcorn_tpu_torch.tools.parity_released",
+                            "--selftest", "--device", "cuda"], cwd=HERE, stdout=subprocess.PIPE,
+                           stderr=subprocess.STDOUT, text=True)
+        selftest_s = time.perf_counter() - t0
+        if r.returncode != 0:
+            raise AssertionError(f"parity_released --selftest exited {r.returncode}:\n{r.stdout[-4000:]}")
+        selftest = json.loads(r.stdout.strip().splitlines()[-1])["selftest"]
+        surf_launches = {k: v["launches"] for k, v in selftest.items() if isinstance(v, dict)}
+        float_abc = {"double_conv.launches", "up_block.launches", "head.launches"}
+        prep_checks["selftest_cli_equals_harness"] = selftest["cli_equals_harness"] is True
+        prep_checks["selftest_float32_abc"] = all(
+            set(surf_launches[k]) == float_abc for k in ("stitched", "spatial", "transport_bf16"))
+        prep_checks["selftest_int8s_ef"] = {"double_conv.launches_qs", "up_block.launches_qs"} <= set(
+            surf_launches["int8s"])
+        # 7. the dry run: its checks raise in the rank that fails them
+        t0 = time.perf_counter()
+        dry = dryrun_multichip(2, device="cuda:0")
+        dry_s = time.perf_counter() - t0
+        prep_checks["dryrun"] = dry["backend"] == "gloo" and dry["feed_leaves_bit_equal"] == dry["feed_leaves"]
+        if tdist.is_initialized():
+            raise AssertionError("phase prep left a process group up")
+        prep_rec["seconds"].update(eval_tools=ev_t["wall_s"], eval_as_written=ev_w["wall_s"],
+                                   selftest=selftest_s, dryrun_multichip=dry_s)
+        emit({"phase": "prep", **prep_rec,
+              "evals": {tag: {k: v for k, v in ev.items() if k not in ("stats", "glob")}
+                        for tag, ev in prep_evals.items()},
+              "adj_coarse_r2": ev_t["stats"]["Population_AdjCensus_rwa_coarse/r2"],
+              "selftest": {"launches": surf_launches,
+                           "r2": {k: v["r2"] for k, v in selftest.items() if isinstance(v, dict)}},
+              "dryrun_multichip": dry, "checks": prep_checks,
+              "seconds_total": time.perf_counter() - t_phase})
+        if not all(prep_checks.values()):
+            raise AssertionError(f"phase prep: {[k for k, v in prep_checks.items() if not v]}")
 
     # ---------------------------------------------------------------- summary
     # each kernel's launches from the run of its own path: A-C in bf16 the

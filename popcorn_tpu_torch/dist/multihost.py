@@ -107,7 +107,7 @@ def run_demo_eval(mesh=None, state: Optional[str] = None, device="cuda") -> floa
     dev = resolve_device(mesh.device if mesh is not None else device)
     params, consts, _ = _demo_state(state)
     params, consts = to_torch(params, dev), to_torch(consts, dev)
-    members = [_scaled(params, 1.0 + 0.01 * s) for s in range(3)]
+    members = [scaled_tree(params, 1.0 + 0.01 * s) for s in range(3)]
     nd = 1 if mesh is None else mesh.n_data
     ne = 1 if mesh is None else mesh.n_ensemble
     rng = np.random.default_rng(0)
@@ -127,9 +127,11 @@ def run_demo_eval(mesh=None, state: Optional[str] = None, device="cuda") -> floa
     return float(dense.double().sum())
 
 
-def _scaled(tree, f: float):
+def scaled_tree(tree, f: float):
+    """Every leaf of a parameter tree times ``f`` (the demo's and the
+    parity selftest's ensemble members: params scaled by 1 + 0.01 s)."""
     if isinstance(tree, dict):
-        return {k: _scaled(v, f) for k, v in tree.items()}
+        return {k: scaled_tree(v, f) for k, v in tree.items()}
     return tree * f
 
 

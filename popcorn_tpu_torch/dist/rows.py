@@ -26,7 +26,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..nn.ops import to_nchw, to_nhwc
+from ..nn.ops import reflect_pad_hw
 
 HALO = 64  # rows of true context a block or strip: > the builder's ~45 px
 # receptive field with its reflect-14 pad, the bound the patch stitch's
@@ -89,7 +89,7 @@ def member_window(x_u: torch.Tensor, s_u: torch.Tensor, rows: Rows,
     top = px1 if rows.u0 == 0 else 0
     bot = px2 if rows.u1 == rows.hp else 0
     if top or bot or py1 or py2:
-        x = to_nhwc(F.pad(to_nchw(x), (py1, py2, top, bot), mode="reflect"))
+        x = reflect_pad_hw(x, top, bot, py1, py2)
         s = F.pad(s, (py1, py2, top, bot))
     p0 = 0 if rows.u0 == 0 else rows.u0 + px1  # padded-frame row of x's first
     k0p, k1p = rows.k0 + px1, rows.k1 + px1

@@ -7,10 +7,9 @@ time step run the Bag-of-POPCORN ensemble over that step's S1/S2 mosaics
 and std population maps, and tabulate the regional totals in
 ``totals.csv`` (label, total_population, total_std), written with the
 standard csv module in pandas' ``to_csv`` float format (``repr`` of a
-float). A time step is a PopMapData-layout region directory per date, so
-yearly mosaics can live side by side. The JAX package also draws
-``totals.png`` when matplotlib imports; the port leaves the plot out (it
-imports no plotting library) and writes the table the plot is drawn from.
+float), and ``totals.png`` (utils/viz.py::save_totals_plot) where
+matplotlib imports. A time step is a PopMapData-layout region directory
+per date, so yearly mosaics can live side by side.
 With ``mesh=`` each step's eval splits over the ranks
 (run_sliding_inference(mesh=)); rank 0 writes the maps and the table.
 ``spatial=True`` runs each step whole-frame (infer/spatial.py) instead of
@@ -27,6 +26,7 @@ from ..config import DataPaths, ModelConfig
 from ..data.dataset import PopulationDataset
 from ..data.normalize import NormStats
 from ..dist.mesh import resolve_device
+from ..utils.viz import save_totals_plot
 from .sliding import run_sliding_inference
 
 TOTALS_COLUMNS = ("label", "total_population", "total_std")
@@ -50,9 +50,9 @@ def run_population_timeseries(
 ) -> List[Dict]:
     """steps: [(label, paths, region), ...] ordered in time.
 
-    Writes <region>_predictions_<label>.tif (and _STD) per step and
-    totals.csv; returns the totals records (rank 0; [] on the other ranks
-    of a ``mesh``)."""
+    Writes <region>_predictions_<label>.tif (and _STD) per step, totals.csv
+    and, where matplotlib imports, totals.png; returns the totals records
+    (rank 0; [] on the other ranks of a ``mesh``)."""
     dev = resolve_device(mesh.device if mesh is not None else device)
     root = mesh is None or mesh.is_root
     if root:
@@ -93,4 +93,8 @@ def run_population_timeseries(
         w.writerow(TOTALS_COLUMNS)
         for r in records:
             w.writerow([r["label"], repr(r["total_population"]), repr(r["total_std"])])
+    try:
+        save_totals_plot(os.path.join(output_dir, "totals.png"), records)
+    except ImportError:  # no matplotlib: the table alone
+        pass
     return records

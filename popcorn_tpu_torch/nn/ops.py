@@ -88,9 +88,33 @@ def pad_to_match(x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     return F.pad(x1, (0, 0, dx // 2, dx - dx // 2, dy // 2, dy - dy // 2))
 
 
+def _reflect_index(n: int, lo: int, hi: int, device) -> torch.Tensor:
+    """The source index of each position of a side of ``n`` padded by
+    ``lo`` and ``hi`` in numpy's 'reflect' mode: the periodic extension of
+    period 2(n - 1), so a pad wider than n - 1 reflects again."""
+    i = torch.arange(-lo, n + hi, device=device)
+    if n == 1:
+        return torch.zeros_like(i)
+    period = 2 * (n - 1)
+    m = torch.remainder(i, period)
+    return torch.where(m < n, m, period - m)
+
+
+def reflect_pad_hw(x: torch.Tensor, top: int, bottom: int, left: int, right: int) -> torch.Tensor:
+    """Reflect-pad an NHWC tensor's H by (top, bottom) and W by (left,
+    right) as jnp.pad and numpy's 'reflect' do. torch's F.pad gives the
+    same values for pads below the side and raises for wider ones, which
+    numpy reflects again: a frame or patch of fewer rows than its pad."""
+    h, w = x.shape[1], x.shape[2]
+    if max(top, bottom) < h and max(left, right) < w:
+        return to_nhwc(F.pad(to_nchw(x), (left, right, top, bottom), mode="reflect"))
+    x = x.index_select(1, _reflect_index(h, top, bottom, x.device))
+    return x.index_select(2, _reflect_index(w, left, right, x.device))
+
+
 def reflect_pad(x: torch.Tensor, p: int) -> torch.Tensor:
-    """Reflect-pad H and W by p pixels on each side (torch 'reflect')."""
-    return to_nhwc(F.pad(to_nchw(x), (p, p, p, p), mode="reflect"))
+    """Reflect-pad H and W by p pixels on each side."""
+    return reflect_pad_hw(x, p, p, p, p)
 
 
 @contextlib.contextmanager
@@ -127,11 +151,11 @@ def add_padding(x: torch.Tensor, force: bool = True) -> Tuple[torch.Tensor, PadS
     if h % 32 != 0:
         px1 = (64 - h % 64) // 2
         px2 = (64 - h % 64) - px1
-        x = to_nhwc(F.pad(to_nchw(x), (0, 0, px1, px2), mode="reflect"))
+        x = reflect_pad_hw(x, px1, px2, 0, 0)
     if w % 32 != 0:
         py1 = (64 - w % 64) // 2
         py2 = (64 - w % 64) - py1
-        x = to_nhwc(F.pad(to_nchw(x), (py1, py2, 0, 0), mode="reflect"))
+        x = reflect_pad_hw(x, 0, 0, py1, py2)
     return x, (px1, px2, py1, py2)
 
 

@@ -1,9 +1,11 @@
 """The port stands alone: every module of popcorn_tpu_torch imports with
 jax, ml_dtypes, optax, orbax and popcorn_tpu made unimportable, and no
 file of the package (nor chip_smoke.py) imports any of them (the machine
-with the card has none of them); the time-series, DDA, rank-layer and
-whole-frame modules import no pandas or matplotlib either, and importing
-the rank layer (dist/) and infer/spatial.py starts no process group."""
+with the card has none of them); the time-series, DDA, rank-layer,
+whole-frame, geo, acquisition and dry-run modules import no pandas or
+matplotlib either; matplotlib is imported only inside utils/viz.py's
+functions; and importing the rank layer (dist/) and infer/spatial.py
+starts no process group."""
 
 import ast
 import os
@@ -22,7 +24,11 @@ NO_PANDAS = ("dda/datasets.py", "dda/losses.py", "dda/metrics.py", "dda/network.
              "dda/train.py", "infer/timeseries.py", "infer/pop_timeseries.py",
              "cli/timeseries.py", "cli/dda_train.py", "dist/mesh.py", "dist/launch.py",
              "dist/multihost.py", "dist/rows.py", "infer/spatial.py", "utils/flops.py",
-             "utils/profiling.py")
+             "utils/profiling.py", "geo/shapefile.py", "geo/rasterize.py", "acquisition/common.py",
+             "acquisition/gee.py", "acquisition/mpc.py", "acquisition/sentinel_hub.py",
+             "dryrun.py")
+# the one module that may import matplotlib, inside its functions only
+PLOTS = "utils/viz.py"
 
 
 def _sources():
@@ -52,6 +58,25 @@ def test_no_jax_or_reference_package_import(path):
 def test_no_pandas_or_matplotlib_import(rel):
     bad = sorted(set(_imported_roots(os.path.join(PKG, rel))) & {*FORBIDDEN, "pandas", "matplotlib"})
     assert not bad, f"{rel} imports {bad}"
+
+
+def test_matplotlib_only_inside_the_plot_functions():
+    """No module imports matplotlib at its top level, and only utils/viz.py
+    imports it at all, inside its functions: the port imports without it
+    (the card's installation has none)."""
+    for path in _sources():
+        tree = ast.parse(open(path).read(), filename=path)
+        top = {n for n in tree.body if isinstance(n, (ast.Import, ast.ImportFrom))}
+        for node in ast.walk(tree):
+            if isinstance(node, ast.Import):
+                names = [a.name for a in node.names]
+            elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+                names = [node.module]
+            else:
+                continue
+            if any(n.split(".")[0] == "matplotlib" for n in names):
+                rel = os.path.relpath(path, PKG)
+                assert rel == PLOTS and node not in top, f"{rel} imports matplotlib at line {node.lineno}"
 
 
 def test_every_module_imports_without_jax():
