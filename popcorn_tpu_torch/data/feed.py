@@ -30,6 +30,7 @@ import numpy as np
 import torch
 
 from ..aug.augment import apply_geometric, draw_general, draw_photometric
+from ..utils.profiling import span
 from .dataset import PopulationDataset
 
 DEFAULT_LADDER = (256, 512, 1024, 1536, 2048, 3072, 4096)
@@ -320,10 +321,17 @@ class WeaksupFeed:
                     nb += 1
 
     def epoch(self, epoch: int) -> Iterator[Dict]:
-        """Iterate one epoch with background prefetch."""
+        """Iterate one epoch with background prefetch. The caller's wait
+        for each batch is the span ``feed.batch`` (utils/profiling.py),
+        on the caller's thread and not the prefetch thread's."""
         if self.prefetch <= 0:
-            yield from self._epoch_batches(epoch)
-            return
+            it = self._epoch_batches(epoch)
+            while True:
+                with span("feed.batch"):
+                    b = next(it, None)
+                if b is None:
+                    return
+                yield b
         q: queue.Queue = queue.Queue(maxsize=self.prefetch)
         done = object()
         err: List[BaseException] = []
@@ -340,7 +348,8 @@ class WeaksupFeed:
         t = threading.Thread(target=worker, daemon=True)
         t.start()
         while True:
-            b = q.get()
+            with span("feed.batch"):
+                b = q.get()
             if b is done:
                 break
             yield b

@@ -20,6 +20,8 @@ torch.optim.Adam would skip for a None gradient.
 One step: photometric augmentation -> normalization -> sparse-masked
 POPCORN forward -> census loss * lam_weak -> backward -> update, with the
 memory-tier flags as arguments and TF32 off (nn/ops.py::float32_exact).
+The forward, the backward and the update are the spans ``step.forward``,
+``step.backward`` and ``step.optimizer`` (utils/profiling.py).
 
 Data parallelism (``mesh``, dist/mesh.py): each rank holds its rows of
 the global batch (``shard_batch``) and computes the GLOBAL loss: the
@@ -71,6 +73,7 @@ from ..nn.popcorn import (
     popcorn_predict,
     sparsity_mask,
 )
+from ..utils.profiling import span
 
 Tree = Dict[str, Any]
 Path = Tuple[str, ...]
@@ -320,13 +323,15 @@ class TrainStep:
         flat = tree_flatten(params)
         leaves = [v.detach().requires_grad_(True) for _, v in flat]
         tparams = tree_unflatten((p, q) for (p, _), q in zip(flat, leaves))
-        loss, aux = self.loss_fn(tparams, batch, generator, enc, unet, mask)
-        # a spatial rank with no rows has a loss without a graph
-        grads = (torch.autograd.grad(loss, leaves, allow_unused=True) if loss.requires_grad
-                 else [None] * len(leaves))
-        self.unused = frozenset(p for (p, _), d in zip(flat, grads) if d is None)
-        # a frozen leaf's gradient is zero, not None (see the module doc)
-        grads = [torch.zeros_like(q) if d is None else d for q, d in zip(leaves, grads)]
+        with span("step.forward"):
+            loss, aux = self.loss_fn(tparams, batch, generator, enc, unet, mask)
+        with span("step.backward"):
+            # a spatial rank with no rows has a loss without a graph
+            grads = (torch.autograd.grad(loss, leaves, allow_unused=True) if loss.requires_grad
+                     else [None] * len(leaves))
+            self.unused = frozenset(p for (p, _), d in zip(flat, grads) if d is None)
+            # a frozen leaf's gradient is zero, not None (see the module doc)
+            grads = [torch.zeros_like(q) if d is None else d for q, d in zip(leaves, grads)]
         aux = {k: v.detach() for k, v in aux.items()}
         return tree_unflatten((p, d) for (p, _), d in zip(flat, grads)), aux
 
@@ -399,7 +404,8 @@ class TrainStep:
             aux["watch"] = {
                 keystr(p): torch.sqrt(torch.sum(g.float() ** 2)) for p, g in tree_flatten(grads)
             }
-        params, opt_state = self.optimizer.update(grads, opt_state, params)
+        with span("step.optimizer"):
+            params, opt_state = self.optimizer.update(grads, opt_state, params)
         return params, opt_state, aux
 
 

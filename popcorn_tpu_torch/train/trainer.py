@@ -72,7 +72,7 @@ from ..losses.metrics import get_test_metrics
 from ..nn.init import init_popcorn
 from ..nn.popcorn import check_config
 from ..utils.log import MetricsLogger, NumberList, new_log
-from ..utils.profiling import device_memory_stats
+from ..utils.profiling import SPANS, device_memory_stats, span
 from . import checkpoint as ckpt
 from .state import (
     keystr,
@@ -119,144 +119,148 @@ class Trainer:
         device="cuda",
         mesh=None,
     ):
-        check_config(mcfg)
-        self.device = resolve_device(device)
-        self.paths = paths
-        self.mcfg = mcfg
-        self.tcfg = tcfg
-        self.inference_patch = inference_patch
-        self.inference_overlap = inference_overlap
-        self.test_patch_batch = test_patch_batch
+        with span("trainer.init"):
+            check_config(mcfg)
+            self.device = resolve_device(device)
+            self.paths = paths
+            self.mcfg = mcfg
+            self.tcfg = tcfg
+            self.inference_patch = inference_patch
+            self.inference_overlap = inference_overlap
+            self.test_patch_batch = test_patch_batch
 
-        # data-parallel ranks: the batch's rows split over 'data' (or each
-        # crop's rows under spatial training), the parameters replicated
-        # (module docstring). Created before the feed so the device-resident
-        # feed can assemble this rank's rows. ``mesh`` gives the grid (as
-        # the Evaluator takes one: ranks that share a card); else it is
-        # built from the config, as the CLI's ranks do.
-        self.mesh = mesh
-        if mesh is None and (tcfg.multihost or tcfg.data_parallel > 1
-                             or (tcfg.spatial_train and under_launcher())):
-            n = tcfg.data_parallel if tcfg.data_parallel > 1 else None
-            devs = devices_for(self.device)
-            self.mesh = (make_multihost_mesh(n, devices=devs) if tcfg.multihost
-                         else make_mesh(n, devices=devs))
-        if self.mesh is not None:
-            if not tcfg.spatial_train and tcfg.weak_batch_size % self.mesh.n_data:
-                raise ValueError(
-                    f"weak_batch_size ({tcfg.weak_batch_size}) must be divisible "
-                    f"by the data mesh size ({self.mesh.n_data})"
+            # data-parallel ranks: the batch's rows split over 'data' (or each
+            # crop's rows under spatial training), the parameters replicated
+            # (module docstring). Created before the feed so the device-resident
+            # feed can assemble this rank's rows. ``mesh`` gives the grid (as
+            # the Evaluator takes one: ranks that share a card); else it is
+            # built from the config, as the CLI's ranks do.
+            self.mesh = mesh
+            if mesh is None and (tcfg.multihost or tcfg.data_parallel > 1
+                                 or (tcfg.spatial_train and under_launcher())):
+                n = tcfg.data_parallel if tcfg.data_parallel > 1 else None
+                devs = devices_for(self.device)
+                self.mesh = (make_multihost_mesh(n, devices=devs) if tcfg.multihost
+                             else make_mesh(n, devices=devs))
+            if self.mesh is not None:
+                if not tcfg.spatial_train and tcfg.weak_batch_size % self.mesh.n_data:
+                    raise ValueError(
+                        f"weak_batch_size ({tcfg.weak_batch_size}) must be divisible "
+                        f"by the data mesh size ({self.mesh.n_data})"
+                    )
+                self.device = self.mesh.device
+            self.is_root = self.mesh is None or self.mesh.is_root
+
+            args = {**dataclasses.asdict(mcfg), **dataclasses.asdict(tcfg)}
+            if self.is_root:
+                self.experiment_folder, _, _ = new_log(tcfg.save_dir, args)
+                self.logger = MetricsLogger(self.experiment_folder, use_wandb=use_wandb)
+            else:
+                self.experiment_folder, self.logger = None, _NoLogger()
+            if self.mesh is not None:
+                self.experiment_folder = self.mesh.broadcast_object(self.experiment_folder)
+
+            # datasets --------------------------------------------------------
+            split = "train" if tcfg.weak_validation else "all"
+            senb = mcfg.sentinel_buildings
+
+            def weaksup(reg, lvl, **kw):
+                return PopulationDataset(
+                    paths, reg, mode="weaksup", train_level=lvl,
+                    s1=mcfg.s1, s2=mcfg.s2, nir=mcfg.nir, viirs=mcfg.viirs,
+                    fourseasons=tcfg.fourseasons, max_samples=tcfg.max_weak_samples,
+                    max_pix=tcfg.max_weak_pix, max_pix_box=tcfg.max_pix_box,
+                    ascfill=reg in NEED_ASCENDING_FILL, patchsize=None, overlap=None,
+                    sentinelbuildings=senb, **kw,
                 )
-            self.device = self.mesh.device
-        self.is_root = self.mesh is None or self.mesh.is_root
 
-        args = {**dataclasses.asdict(mcfg), **dataclasses.asdict(tcfg)}
-        if self.is_root:
-            self.experiment_folder, _, _ = new_log(tcfg.save_dir, args)
-            self.logger = MetricsLogger(self.experiment_folder, use_wandb=use_wandb)
-        else:
-            self.experiment_folder, self.logger = None, _NoLogger()
-        if self.mesh is not None:
-            self.experiment_folder = self.mesh.broadcast_object(self.experiment_folder)
-
-        # datasets ------------------------------------------------------------
-        split = "train" if tcfg.weak_validation else "all"
-        senb = mcfg.sentinel_buildings
-
-        def weaksup(reg, lvl, **kw):
-            return PopulationDataset(
-                paths, reg, mode="weaksup", train_level=lvl,
-                s1=mcfg.s1, s2=mcfg.s2, nir=mcfg.nir, viirs=mcfg.viirs,
-                fourseasons=tcfg.fourseasons, max_samples=tcfg.max_weak_samples,
-                max_pix=tcfg.max_weak_pix, max_pix_box=tcfg.max_pix_box,
-                ascfill=reg in NEED_ASCENDING_FILL, patchsize=None, overlap=None,
-                sentinelbuildings=senb, **kw,
+            pairs = list(zip(tcfg.target_regions_train, tcfg.train_level))
+            self.train_datasets = [weaksup(r, lv, split=split, asc_aug=tcfg.asc_aug)
+                                   for r, lv in pairs]
+            self.val_datasets = (
+                [weaksup(r, lv, split="val", in_memory=tcfg.val_in_memory) for r, lv in pairs]
+                if tcfg.weak_validation else []
             )
+            self.test_datasets = [
+                PopulationDataset(
+                    paths, reg, mode="test", patchsize=inference_patch,
+                    overlap=inference_overlap, s1=mcfg.s1, s2=mcfg.s2, nir=mcfg.nir,
+                    viirs=mcfg.viirs, fourseasons=False,
+                    ascfill=reg in NEED_ASCENDING_FILL, sentinelbuildings=senb,
+                )
+                for reg in tcfg.target_regions
+            ]
 
-        pairs = list(zip(tcfg.target_regions_train, tcfg.train_level))
-        self.train_datasets = [weaksup(r, lv, split=split, asc_aug=tcfg.asc_aug) for r, lv in pairs]
-        self.val_datasets = (
-            [weaksup(r, lv, split="val", in_memory=tcfg.val_in_memory) for r, lv in pairs]
-            if tcfg.weak_validation else []
-        )
-        self.test_datasets = [
-            PopulationDataset(
-                paths, reg, mode="test", patchsize=inference_patch,
-                overlap=inference_overlap, s1=mcfg.s1, s2=mcfg.s2, nir=mcfg.nir,
-                viirs=mcfg.viirs, fourseasons=False,
-                ascfill=reg in NEED_ASCENDING_FILL, sentinelbuildings=senb,
-            )
-            for reg in tcfg.target_regions
-        ]
+            with span("trainer.init.feed"):
+                feed_kw = dict(
+                    batch_size=tcfg.weak_batch_size, bucket_ladder=tcfg.bucket_ladder,
+                    seed=tcfg.seed, building_input=mcfg.building_input,
+                    segmentation_input=mcfg.segmentation_input, max_samples=tcfg.max_samples,
+                    num_workers=tcfg.num_workers, transport=tcfg.transport,
+                )
+                self.feed_kw = feed_kw
+                # the chosen feed ('resident', 'rotating' or 'host') and the cost
+                # gate's report when it ran
+                self.feed, self.feed_choice, self.gate_report = None, "host", None
+                # the JAX trainer's gate: cross-host residency is unproven, and the
+                # device feed assembles a batch's samples, not a crop's rows
+                host_only = tcfg.multihost or tcfg.spatial_train
+                if tcfg.device_feed == "on" and host_only:
+                    raise Ineligible("--device_feed on requires a single-host run without "
+                                     "--spatial_train (multihost and spatial batches are not "
+                                     "assembled on the device)")
+                if tcfg.device_feed != "off" and not host_only:
+                    # device-resident data plane: mosaics upload once, batch
+                    # assembly (crop + mask + geometric augs) runs on the device
+                    try:
+                        self.feed = self._agreed(lambda: DeviceWeaksupFeed(
+                            self.train_datasets, device=self.device, mesh=self.mesh, **feed_kw))
+                        self.feed_choice = "resident"
+                        print("Training feed: device-resident mosaics")
+                    except Ineligible as e:
+                        if tcfg.device_feed == "on":
+                            raise
+                        # middle path: regions whose full multi-season stack does
+                        # not fit rotate one season's slice at a time
+                        try:
+                            self.feed = self._maybe_rotating_feed(feed_kw, e)
+                            self.feed_choice = "rotating"
+                        except Ineligible as e2:
+                            print(f"Device training feed unavailable ({e}; rotation: {e2}); "
+                                  "using host feed")
+                if self.feed is None:
+                    self.feed = WeaksupFeed(self.train_datasets, **feed_kw)
 
-        feed_kw = dict(
-            batch_size=tcfg.weak_batch_size, bucket_ladder=tcfg.bucket_ladder,
-            seed=tcfg.seed, building_input=mcfg.building_input,
-            segmentation_input=mcfg.segmentation_input, max_samples=tcfg.max_samples,
-            num_workers=tcfg.num_workers, transport=tcfg.transport,
-        )
-        self.feed_kw = feed_kw
-        # the chosen feed ('resident', 'rotating' or 'host') and the cost
-        # gate's report when it ran
-        self.feed, self.feed_choice, self.gate_report = None, "host", None
-        # the JAX trainer's gate: cross-host residency is unproven, and the
-        # device feed assembles a batch's samples, not a crop's rows
-        host_only = tcfg.multihost or tcfg.spatial_train
-        if tcfg.device_feed == "on" and host_only:
-            raise Ineligible("--device_feed on requires a single-host run without "
-                             "--spatial_train (multihost and spatial batches are not "
-                             "assembled on the device)")
-        if tcfg.device_feed != "off" and not host_only:
-            # device-resident data plane: mosaics upload once, batch
-            # assembly (crop + mask + geometric augs) runs on the device
-            try:
-                self.feed = self._agreed(lambda: DeviceWeaksupFeed(
-                    self.train_datasets, device=self.device, mesh=self.mesh, **feed_kw))
-                self.feed_choice = "resident"
-                print("Training feed: device-resident mosaics")
-            except Ineligible as e:
-                if tcfg.device_feed == "on":
-                    raise
-                # middle path: regions whose full multi-season stack does
-                # not fit rotate one season's slice at a time
-                try:
-                    self.feed = self._maybe_rotating_feed(feed_kw, e)
-                    self.feed_choice = "rotating"
-                except Ineligible as e2:
-                    print(f"Device training feed unavailable ({e}; rotation: {e2}); "
-                          "using host feed")
-        if self.feed is None:
-            self.feed = WeaksupFeed(self.train_datasets, **feed_kw)
+            # model -----------------------------------------------------------
+            with span("trainer.init.model"):
+                if mcfg.pretrained and find_dda_checkpoint():
+                    params, consts = load_popcorn_from_dda(mcfg, head_seed=tcfg.seed)
+                else:
+                    params, consts = init_popcorn(tcfg.seed, mcfg)
+                # replicas start equal: rank 0's parameters on every rank
+                self.params = replicate(to_torch(params, self.device), self.mesh)
+                self.consts = replicate(to_torch(consts, self.device), self.mesh)
+                n_params = sum(v.numel() for _, v in tree_flatten(self.params))
+                print(f"Model POPCORN; #Effective Params trainable: {n_params}")
 
-        # model ---------------------------------------------------------------
-        if mcfg.pretrained and find_dda_checkpoint():
-            params, consts = load_popcorn_from_dda(mcfg, head_seed=tcfg.seed)
-        else:
-            params, consts = init_popcorn(tcfg.seed, mcfg)
-        # replicas start equal: rank 0's parameters on every rank
-        self.params = replicate(to_torch(params, self.device), self.mesh)
-        self.consts = replicate(to_torch(consts, self.device), self.mesh)
-        n_params = sum(v.numel() for _, v in tree_flatten(self.params))
-        print(f"Model POPCORN; #Effective Params trainable: {n_params}")
+                self.stats = NormStats(device=self.device)
+                self.optimizer = make_optimizer(tcfg)
+                self.opt_state = self.optimizer.init(self.params)
+                self.step_fn = make_train_step(mcfg, tcfg, self.consts, self.stats, self.optimizer,
+                                               mesh=self.mesh)
+                self.eval_popcount = make_eval_popcount(mcfg, self.consts, self.stats)
 
-        self.stats = NormStats(device=self.device)
-        self.optimizer = make_optimizer(tcfg)
-        self.opt_state = self.optimizer.init(self.params)
-        self.step_fn = make_train_step(mcfg, tcfg, self.consts, self.stats, self.optimizer,
-                                       mesh=self.mesh)
-        self.eval_popcount = make_eval_popcount(mcfg, self.consts, self.stats)
+                self.info = {"epoch": 0, "iter": 0, "sampleitr": 0}
+                self.pred_buffer = NumberList(300)
+                self.target_buffer = NumberList(300)
+                self.best_optimization_loss = float("inf")
+                # draws the sparsity mask's lattice (on the host: a few hundred
+                # indices a step)
+                self.generator = torch.Generator().manual_seed(tcfg.seed + 1)
+                self._val_feeds: Dict[int, WeaksupFeed] = {}
 
-        self.info = {"epoch": 0, "iter": 0, "sampleitr": 0}
-        self.pred_buffer = NumberList(300)
-        self.target_buffer = NumberList(300)
-        self.best_optimization_loss = float("inf")
-        # draws the sparsity mask's lattice (on the host: a few hundred
-        # indices a step)
-        self.generator = torch.Generator().manual_seed(tcfg.seed + 1)
-        self._val_feeds: Dict[int, WeaksupFeed] = {}
-
-        if resume is not None:
-            self.resume(resume)
+                if resume is not None:
+                    self.resume(resume)
 
     def _agreed(self, build):
         """``build()``'s feed when every rank built one, else Ineligible on
@@ -365,7 +369,8 @@ class Trainer:
                     pad_batch_to_multiple(batch, self.mesh.n_data * n_micro, SHARD_KEYS),
                     self.mesh, batch_keys=SHARD_KEYS, n_micro=n_micro,
                 )
-            dev_batch = _upload(batch, self.device, TRAIN_KEYS)
+            with span("trainer.upload"):
+                dev_batch = _upload(batch, self.device, TRAIN_KEYS)
             if "row_block" in batch:
                 dev_batch["row_block"] = batch["row_block"]
             nxt = (dev_batch, batch, flags)
@@ -390,29 +395,31 @@ class Trainer:
                 # --skip-first: run the full step but discard the update
                 # during epoch 0 (arguments/train.py:42)
                 self.params, self.opt_state = new_params, new_opt_state
-            loss = float(aux["optimization_loss"])
-            if np.isnan(loss):
-                raise FloatingPointError("detected NaN loss..")
-            if np.isinf(loss):
-                raise FloatingPointError("detected Inf loss..")
-
             watch = aux.pop("watch", None)
+            # the host's wait for the step: its loss, counts and logged values
+            with span("trainer.readback"):
+                loss = float(aux["optimization_loss"])
+                if np.isnan(loss):
+                    raise FloatingPointError("detected NaN loss..")
+                if np.isinf(loss):
+                    raise FloatingPointError("detected Inf loss..")
+                pred, target = aux.pop("popcount"), dev_batch["y"]
+                if self.mesh is not None and "row_block" not in batch:
+                    # every rank's rows, in rank order (the JAX trainer's
+                    # fetch_to_host of the sharded popcount)
+                    valid = batch.get("valid", np.ones(len(pred), bool))
+                    keep = fetch_to_host(torch.as_tensor(valid, dtype=torch.uint8),
+                                         self.mesh).astype(bool)
+                    pred = fetch_to_host(pred, self.mesh)[keep]
+                    target = fetch_to_host(torch.as_tensor(target).float(), self.mesh)[keep]
+                else:
+                    pred, target = pred.cpu().numpy(), np.asarray(batch["y"])
+                self.pred_buffer.add(pred)
+                self.target_buffer.add(target)
+                for k, v in aux.items():
+                    stats[k] += float(v)
             if watch is not None:
                 self.log_watch(watch)
-            pred, target = aux.pop("popcount"), dev_batch["y"]
-            if self.mesh is not None and "row_block" not in batch:
-                # every rank's rows, in rank order (the JAX trainer's
-                # fetch_to_host of the sharded popcount)
-                keep = fetch_to_host(torch.as_tensor(batch.get("valid", np.ones(len(pred), bool)),
-                                                     dtype=torch.uint8), self.mesh).astype(bool)
-                pred = fetch_to_host(pred, self.mesh)[keep]
-                target = fetch_to_host(torch.as_tensor(target).float(), self.mesh)[keep]
-            else:
-                pred, target = pred.cpu().numpy(), np.asarray(batch["y"])
-            self.pred_buffer.add(pred)
-            self.target_buffer.add(target)
-            for k, v in aux.items():
-                stats[k] += float(v)
             nlog += 1
             self.info["iter"] += 1
             self.info["sampleitr"] += self.tcfg.weak_batch_size
@@ -453,6 +460,12 @@ class Trainer:
             mem = device_memory_stats(self.device)
             if mem:
                 self.logger.log(mem, self.info["iter"])
+            # the epoch's median ms of each program span (utils/profiling.py)
+            times = SPANS.summary()
+            if times:
+                self.logger.log({f"time/{k}_ms": v["median_ms"] for k, v in times.items()},
+                                self.info["iter"])
+            SPANS.reset()
             if self.tcfg.save_model in ("last", "both"):
                 self.save_model("last")
             if (self.info["epoch"] + 1) % self.tcfg.val_every_n_epochs == 0:
