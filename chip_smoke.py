@@ -150,7 +150,9 @@ Phases, each printing one JSON line:
 Each of phases 9-14 prints its wall seconds.
 Kernel D (the head backward) is checked in phase 3 at the train phase's
 bucket shape (2x1024x1024), at 2x2048^2 and at a spatial rank's kept rows
-(1x2048x2048, as kernel C's 2-channel forward). Then the {"kernels": [...]}
+(1x2048x2048, as kernel C's 2-channel forward). The optimizer update
+(csrc/adam.cu, one launch a train step) follows E-H in phase 3, over the
+member's 62 leaves against Optimizer.update_plain. Then the {"kernels": [...]}
 summary, the nvidia-smi name/power line, and last {"ok": true, "device":
 {...}}. Any failure raises: the script exits non-zero and prints no
 result. Run from the repository root:
@@ -1132,7 +1134,8 @@ def main() -> None:
                                       os.path.join(out_dir, f"lib{n}.so"),
                                       os.path.join(ab_dir, f"{n}.cu")],
                                      stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-                 for n in cuda_lib.KERNEL_SOURCES}
+                 for n in cuda_lib.KERNEL_SOURCES
+                 if os.path.exists(os.path.join(ab_dir, f"{n}.cu"))}
         for n, proc in procs.items():
             log, _ = proc.communicate()
             if proc.returncode != 0:
@@ -1574,6 +1577,70 @@ def main() -> None:
     h_case("up2_builder_odd", 0, "sar", "up2", bd2, bd1)
     del x6, xs, xo, xb, bx1, bd1, bd2
     torch.cuda.empty_cache()
+
+    # the optimizer update (csrc/adam.cu) over the member's 62 trainable
+    # leaves at the member's defaults (clip 0.01, engaged), gradients
+    # shaped as the train step's (a conv weight's the permuted OIHW
+    # tensor); no TPU kernel: the JAX package leaves it to XLA (optax).
+    # kernel_ms is the whole Optimizer.update with its host work, plain_ms
+    # the plain chain (update_plain, the path before the kernel); the
+    # bound is 28 bytes a parameter at the HBM rate
+    from popcorn_tpu_torch.compat.weights import load_popcorn_from_dda
+    from popcorn_tpu_torch.config import ModelConfig, TrainConfig
+    from popcorn_tpu_torch.train import adam as ADAM
+    from popcorn_tpu_torch.train import state as opt_state_mod
+
+    mparams = to_torch(load_popcorn_from_dda(ModelConfig(biasinit=0.9407), head_seed=1)[0], dev)
+    mflat = opt_state_mod.tree_flatten(mparams)
+    mgrads = opt_state_mod.tree_unflatten(
+        (q, (rand(v.shape[3], v.shape[2], v.shape[0], v.shape[1]).permute(2, 3, 1, 0)
+             if v.dim() == 4 else rand(*v.shape))) for q, v in mflat)
+    opt = opt_state_mod.make_optimizer(TrainConfig())
+    ostate = opt.init(mparams)
+    got_p, got_s = opt.update(mgrads, ostate, mparams)
+    ref_p, ref_s = opt.update_plain(mgrads, ostate, mparams)
+    torch.cuda.synchronize()
+
+    def flat_of(tree):
+        return [v for _, v in opt_state_mod.tree_flatten(tree)]
+
+    adam_err = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                   for t, r in ((got_s["mu"], ref_s["mu"]), (got_s["nu"], ref_s["nu"]))
+                   for a, b in zip(flat_of(t), flat_of(r)) if b.any())
+    # the parameters at rtol 1e-5 and 1e-5 of a step absolute
+    step_err = max(float(((a - b).abs() - 1e-5 * b.abs()).max())
+                   for a, b in zip(flat_of(got_p), flat_of(ref_p)))
+    n_par = sum(v.numel() for _, v in mflat)
+    if not (adam_err <= 1e-5 and step_err <= 1e-5 * opt.learning_rate):
+        raise AssertionError(f"adam: the kernel disagrees with the plain chain: moments "
+                             f"{adam_err}, params {step_err}")
+
+    def adam_run():
+        return opt.update(mgrads, ostate, mparams)
+
+    launches_before = ADAM.launches
+    k_ms = time_ms(adam_run)
+    if ADAM.launches - launches_before != KERNEL_REPS + 2:
+        raise AssertionError(f"adam: {ADAM.launches - launches_before} launches in "
+                             f"{KERNEL_REPS + 2} updates")
+    t0 = time.perf_counter()
+    for _ in range(KERNEL_REPS):
+        adam_run()
+    host_ms = (time.perf_counter() - t0) * 1e3 / KERNEL_REPS
+    torch.cuda.synchronize()
+    d_ms = device_ms(adam_run, "adam_kernel")
+    p_ms = time_ms(lambda: opt.update_plain(mgrads, ostate, mparams))
+    nbytes = 28.0 * n_par
+    b_ms, by = bound(0.0, nbytes, PEAK["fp32"])
+    case = {"phase": "kernel", "kernel": "adam", "case": f"member {len(mflat)} leaves {n_par}",
+            "per_member_calls": 0, "moments_max_rel_err": adam_err, "max_abs_err": step_err,
+            "kernel_ms": k_ms, "host_issue_ms": host_ms, "device_ms": d_ms, "plain_ms": p_ms,
+            "library_ms": None, "bound_ms": b_ms, "bound_by": by, "mbytes": nbytes / 1e6,
+            "launches_a_call": 1}
+    emit(case)
+    cases.append(case)
+    del mparams, mgrads, ostate, got_p, got_s, ref_p, ref_s
+    torch.cuda.empty_cache()
     if args.kernels:
         return
 
@@ -1922,10 +1989,10 @@ def main() -> None:
             for where in (torch.device("cpu"), dev):
                 p, step = steps[where.type]
                 tb = {k: torch.from_numpy(v).to(where) for k, v in small.items()}
-                before = (A.launches, B.launches, C.launches, C.bwd_launches)
+                before = (A.launches, B.launches, C.launches, C.bwd_launches, ADAM.launches)
                 grads, aux = step.grads(p, tb, mask=mask.to(where), **flags)
                 new_p, _ = step.optimizer.update(grads, step.optimizer.init(p), p)
-                after = (A.launches, B.launches, C.launches, C.bwd_launches)
+                after = (A.launches, B.launches, C.launches, C.bwd_launches, ADAM.launches)
                 res[where.type] = (grads, aux, new_p, [a - b for a, b in zip(after, before)])
             (g_c, aux_c, n_c, _), (g_g, aux_g, n_g, tier_launches) = res["cpu"], res["cuda"]
             loss_rel = abs(float(aux_g["optimization_loss"]) - float(aux_c["optimization_loss"])) / abs(
@@ -1953,11 +2020,13 @@ def main() -> None:
                 if float(du_ref.norm()) > 0:
                     upd_rel = max(upd_rel, float((du - du_ref).norm() / du_ref.norm()))
             # on the card every tier runs the head through kernels C and D,
-            # and the builder (and the frozen blocks) through kernels A and B
-            launched = dict(zip(("double_conv", "up_block", "head", "head_bwd"), tier_launches))
+            # the builder (and the frozen blocks) through kernels A and B,
+            # and the update as one launch of adam.cu
+            launched = dict(zip(("double_conv", "up_block", "head", "head_bwd", "adam"),
+                                tier_launches))
             step_ok = (loss_rel <= STEP_RTOL and pc_rel <= STEP_RTOL
                        and grad_rel <= STEP_RTOL and upd_rel <= STEP_UPDATE_RTOL
-                       and all(v > 0 for v in launched.values()))
+                       and all(v > 0 for v in launched.values()) and launched["adam"] == 1)
             emit({"phase": "train_step", "tier": tier, "ok": step_ok, "input": [2, 192, 160, 6],
                   "loss_cpu": float(aux_c["optimization_loss"]),
                   "loss_gpu": float(aux_g["optimization_loss"]), "loss_rel_err": loss_rel,

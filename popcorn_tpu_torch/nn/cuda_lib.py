@@ -30,7 +30,7 @@ CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(_PKG, "build")
 KERNEL_SOURCES = (
     "double_conv", "up_block", "head", "head_bwd",
-    "double_conv_qs", "up_block_qs", "double_conv_q", "up_block_q",
+    "double_conv_qs", "up_block_qs", "double_conv_q", "up_block_q", "adam",
 )
 # The edge of the square tiles over which the dynamic int8 kernels G and H
 # take one activation scale each (csrc/double_conv_q.cu and up_block_q.cu

@@ -74,6 +74,7 @@ from ..nn.popcorn import (
     sparsity_mask,
 )
 from ..utils.profiling import span
+from . import adam
 
 Tree = Dict[str, Any]
 Path = Tuple[str, ...]
@@ -95,6 +96,18 @@ def tree_flatten(tree: Tree, prefix: Path = ()) -> List[Tuple[Path, torch.Tensor
             out += tree_flatten(v, prefix + (k,))
         else:
             out.append((prefix + (k,), v))
+    return out
+
+
+def leaves_at(tree: Tree, paths: List[Path]) -> List[Any]:
+    """The leaves of ``tree`` at ``paths``, in their order (a KeyError
+    for a path the tree lacks)."""
+    out = []
+    for path in paths:
+        node = tree
+        for k in path:
+            node = node[k]
+        out.append(node)
     return out
 
 
@@ -126,7 +139,13 @@ def step_lr(base_lr: float, epoch: int, step_size: int, gamma: float) -> float:
 
 class Optimizer:
     """The optax chain of popcorn_tpu/train/state.py::make_optimizer on
-    parameter trees of tensors. The state is {'count', 'lr', 'mu', 'nu'}."""
+    parameter trees of tensors. The state is {'count', 'lr', 'mu', 'nu'}.
+
+    ``update`` runs the chain as one launch of csrc/adam.cu
+    (train/adam.py) when the parameters are on a card, and as plain
+    PyTorch ops elsewhere; ``update_plain`` runs the plain ops on any
+    device. Both are out of place and take the leaves in tree_flatten's
+    order."""
 
     b1, b2, eps = 0.9, 0.999, 1e-8
 
@@ -134,6 +153,7 @@ class Optimizer:
         self.clip = tc.gradient_clip
         self.weight_decay = tc.weight_decay
         self.learning_rate = tc.learning_rate
+        self.kernel = adam.AdamKernel()
 
     def init(self, params: Tree) -> Dict[str, Any]:
         def zeros():
@@ -141,39 +161,54 @@ class Optimizer:
 
         return {"count": 0, "lr": self.learning_rate, "mu": zeros(), "nu": zeros()}
 
-    def update(self, grads: Tree, state: Dict[str, Any], params: Tree) -> Tuple[Tree, Dict[str, Any]]:
+    def update(self, grads: Tree, state: Dict[str, Any],
+               params: Tree) -> Tuple[Tree, Dict[str, Any]]:
         """(new params, new state); nothing is updated in place."""
+        return self._update(grads, state, params, plain=False)
+
+    def update_plain(self, grads: Tree, state: Dict[str, Any],
+                     params: Tree) -> Tuple[Tree, Dict[str, Any]]:
+        """``update`` through the plain chain on any device."""
+        return self._update(grads, state, params, plain=True)
+
+    def _update(self, grads, state, params, plain: bool):
         flat = tree_flatten(params)
         paths = [p for p, _ in flat]
-        gd = dict(tree_flatten(grads))
-        g = [gd[p].float() for p in paths]
+        p = [v for _, v in flat]
+        g, mu, nu = (leaves_at(t, paths) for t in (grads, state["mu"], state["nu"]))
+        count = state["count"] + 1
+        one = torch.ones((), dtype=torch.float32)
+        bc1 = float(1 - (one * self.b1) ** count)
+        bc2 = float(1 - (one * self.b2) ** count)
+        if plain or not p or p[0].device.type == "cpu":
+            new = self._chain(paths, p, g, mu, nu, state["lr"], bc1, bc2)
+        else:
+            new = self.kernel.update(
+                paths, p, g, mu, nu, decay_mask, lr=state["lr"], bc1=bc1, bc2=bc2,
+                clip=self.clip, weight_decay=self.weight_decay, b1=self.b1, b2=self.b2,
+                eps=self.eps,
+            )
+        new_p, new_mu, new_nu = (tree_unflatten(zip(paths, leaves)) for leaves in new)
+        return new_p, {"count": count, "lr": state["lr"], "mu": new_mu, "nu": new_nu}
+
+    def _chain(self, paths, p, g, mu, nu, lr, bc1, bc2):
+        """The chain leaf by leaf in PyTorch ops: lists of new params, mu, nu."""
+        g = [t.float() for t in g]
         if self.clip > 0:
             norm = torch.sqrt(sum(torch.sum(t * t) for t in g))
             keep = norm < self.clip
             g = [torch.where(keep, t, (t / norm) * self.clip) for t in g]
         if self.weight_decay > 0:
-            g = [
-                t + self.weight_decay * v if decay_mask(p) else t
-                for t, (p, v) in zip(g, flat)
-            ]
-        mu_d, nu_d = dict(tree_flatten(state["mu"])), dict(tree_flatten(state["nu"]))
-        count = state["count"] + 1
-        one = torch.ones((), dtype=torch.float32)
-        bc1 = float(1 - (one * self.b1) ** count)
-        bc2 = float(1 - (one * self.b2) ** count)
+            g = [t + self.weight_decay * v if decay_mask(q) else t for t, q, v in zip(g, paths, p)]
         new_p, new_mu, new_nu = [], [], []
-        for t, (p, v) in zip(g, flat):
-            mu = (1 - self.b1) * t + self.b1 * mu_d[p]
-            nu = (1 - self.b2) * (t * t) + self.b2 * nu_d[p]
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
-            new_p.append((p, v + u * (-state["lr"])))
-            new_mu.append((p, mu))
-            new_nu.append((p, nu))
-        new_state = {
-            "count": count, "lr": state["lr"],
-            "mu": tree_unflatten(new_mu), "nu": tree_unflatten(new_nu),
-        }
-        return tree_unflatten(new_p), new_state
+        for t, v, m0, v0 in zip(g, p, mu, nu):
+            m = (1 - self.b1) * t + self.b1 * m0
+            s = (1 - self.b2) * (t * t) + self.b2 * v0
+            u = (m / bc1) / (torch.sqrt(s / bc2) + self.eps)
+            new_p.append(v + u * (-lr))
+            new_mu.append(m)
+            new_nu.append(s)
+        return new_p, new_mu, new_nu
 
 
 def make_optimizer(tc: TrainConfig) -> Optimizer:

@@ -73,6 +73,7 @@ from ..nn.init import init_popcorn
 from ..nn.popcorn import check_config
 from ..utils.log import MetricsLogger, NumberList, new_log
 from ..utils.profiling import SPANS, device_memory_stats, span
+from . import adam
 from . import checkpoint as ckpt
 from .state import (
     keystr,
@@ -454,16 +455,19 @@ class Trainer:
 
     def train(self):
         for _ in range(self.info["epoch"], self.tcfg.num_epochs):
+            adam_before = adam.launches
             self.train_epoch()
             # device memory per epoch (the reference's gpu_used GB,
             # run_train.py:39-40, 156-158)
             mem = device_memory_stats(self.device)
             if mem:
                 self.logger.log(mem, self.info["iter"])
-            # the epoch's median ms of each program span (utils/profiling.py)
+            # the epoch's median ms of each program span (utils/profiling.py),
+            # and its launches of the optimizer kernel (one a step on a card)
             times = SPANS.summary()
             if times:
-                self.logger.log({f"time/{k}_ms": v["median_ms"] for k, v in times.items()},
+                self.logger.log({**{f"time/{k}_ms": v["median_ms"] for k, v in times.items()},
+                                 "launches/adam": adam.launches - adam_before},
                                 self.info["iter"])
             SPANS.reset()
             if self.tcfg.save_model in ("last", "both"):

@@ -17,7 +17,10 @@ conv1 channels and 28 at 16) and D (64-pixel tiles on a persistent grid
 of at most 264 blocks) are held at ragged last tiles in both dimensions,
 pad rings with a top/left offset, the builder's odd 519^2 (-> 1038^2), one
 tile plus and minus one, more tiles than blocks, and (A) an input view
-off the alignment of its vector loads.
+off the alignment of its vector loads. The optimizer update (csrc/adam.cu)
+is held to Optimizer.update_plain on the same card tensors at rtol 1e-5
+(only its norm sums in another order), over the member's 62 leaves and
+odd ones.
 
 Needs a CUDA card and skips without one. The repo's conftest imports jax,
 which the GPU machine lacks, so run it there as
@@ -704,3 +707,194 @@ def test_double_conv_q_wrapper_routes_bf16_without_conversion(dev):
               .to(torch.bfloat16))
     out = A.double_conv_q(p, bn, x)
     assert out.dtype == torch.float32 and (A.launches_q_bf16, A.launches_q) == (n16 + 1, n32 + 1)
+
+
+# ------------------------------------------------- the optimizer update (adam.cu)
+
+
+def _member(dev):
+    """The member's 62 trainable leaves (39,333 parameters) on the card."""
+    from popcorn_tpu_torch.compat.weights import load_popcorn_from_dda, to_torch
+    from popcorn_tpu_torch.config import ModelConfig
+
+    params, _ = load_popcorn_from_dda(ModelConfig(biasinit=0.9407), head_seed=1)
+    return to_torch(params, dev)
+
+
+def _grads(params, g, scale, frozen=()):
+    """Seeded gradients shaped as the train step's: a conv weight's as the
+    permuted OIHW tensor autograd returns, and zeros on the leaves whose
+    path holds a ``frozen`` key (a memory tier's frozen blocks)."""
+    from popcorn_tpu_torch.train.state import tree_flatten, tree_unflatten
+
+    out = []
+    for path, v in tree_flatten(params):
+        if any(k in path for k in frozen):
+            d = torch.zeros_like(v)
+        elif v.dim() == 4:
+            s = v.shape
+            d = (torch.randn(s[3], s[2], s[0], s[1], generator=g) * scale).to(v.device)
+            d = d.permute(2, 3, 1, 0)
+        else:
+            d = (torch.randn(v.shape, generator=g) * scale).to(v.device)
+        out.append((path, d))
+    return tree_unflatten(out)
+
+
+def _adam_close(got, ref, lr):
+    """Every leaf of the kernel's params, mu and nu against the plain
+    chain's: rtol 1e-5 (only the norm's sum runs in another order); the
+    params absolute to 1e-5 of a step's size, mu and nu to 1e-6 of the
+    leaf's largest value (moments summed over steps may cancel to 0)."""
+    from popcorn_tpu_torch.train.state import tree_flatten
+
+    (gp, gs), (rp, rs) = got, ref
+    for tree, want, atol in ((gp, rp, lambda r: 1e-5 * lr), (gs["mu"], rs["mu"], None),
+                             (gs["nu"], rs["nu"], None)):
+        for (path, a), (_, b) in zip(tree_flatten(tree), tree_flatten(want)):
+            tol = atol(b) if atol else 1e-6 * float(b.abs().max())
+            torch.testing.assert_close(a, b, rtol=1e-5, atol=tol, msg=str(path))
+
+
+def _storages(tree):
+    from popcorn_tpu_torch.train.state import tree_flatten
+
+    return {v.untyped_storage().data_ptr() for _, v in tree_flatten(tree)}
+
+
+@pytest.mark.parametrize("clip,wd,scale,frozen", [
+    (0.01, 0.0, 1.0, ()),                 # the member's defaults: the clip engaged
+    (0.01, 0.0, 1e-5, ()),                # a norm under the clip
+    (0.01, 0.05, 1.0, ("sar", "opt")),    # decay (head.l4 undecayed), the UNet frozen
+    (0.0, 0.05, 1e-3, ("fusion_out",)),   # no clip
+], ids=["clipped", "under_clip", "decay_frozen", "no_clip"])
+def test_adam_kernel_matches_plain_chain_over_the_member(dev, clip, wd, scale, frozen):
+    """Three updates of the member's 62 leaves, the learning rate changed
+    between them as StepLR does: each is one launch, leaves its inputs
+    as they were, returns leaves that share no storage with them or with
+    each other's buffers, at offsets of ALIGN elements, and agrees with the plain
+    chain on the same card tensors."""
+    from popcorn_tpu_torch.config import TrainConfig
+    from popcorn_tpu_torch.train import adam
+    from popcorn_tpu_torch.train.state import (make_optimizer, set_learning_rate, tree_flatten)
+
+    g = torch.Generator().manual_seed(1700)
+    params = _member(dev)
+    assert len(tree_flatten(params)) == 62
+    assert sum(v.numel() for _, v in tree_flatten(params)) == 39333
+    opt = make_optimizer(TrainConfig(gradient_clip=clip, weight_decay=wd, learning_rate=1e-2))
+    state = opt.init(params)
+    for it, lr in enumerate((1e-2, 5e-3, 5e-3)):
+        state = set_learning_rate(state, lr)
+        grads = _grads(params, g, scale, frozen)
+        inputs = (params, grads, state["mu"], state["nu"])
+        kept = [[v.clone() for _, v in tree_flatten(t)] for t in inputs]
+        launches = adam.launches
+        got = opt.update(grads, state, params)
+        torch.cuda.synchronize()
+        assert adam.launches == launches + 1
+        ref = opt.update_plain(grads, state, params)
+        assert adam.launches == launches + 1
+        _adam_close(got, ref, lr)
+        for t, k in zip(inputs, kept):
+            assert all(torch.equal(v, c) for (_, v), c in zip(tree_flatten(t), k))
+        outs = [_storages(got[0]), _storages(got[1]["mu"]), _storages(got[1]["nu"])]
+        assert all(len(s) == 1 for s in outs) and len(set.union(*outs)) == 3
+        assert not set.union(*outs) & set.union(*(_storages(t) for t in inputs))
+        for tree in (got[0], got[1]["mu"], got[1]["nu"]):
+            assert all(v.storage_offset() % adam.ALIGN == 0 for _, v in tree_flatten(tree))
+        assert got[1]["count"] == it + 1 and got[1]["lr"] == lr
+        params, state = got
+
+
+def test_adam_kernel_odd_leaves_and_determinism(dev):
+    """Leaves of 1 element and odd sizes, 0 to 4 dimensions, strided and
+    contiguous gradients, more elements than one pass of the block
+    (1024 threads x 4), a zero leaf: against the plain chain, and the same
+    bits on a repeat."""
+    from popcorn_tpu_torch.config import TrainConfig
+    from popcorn_tpu_torch.train import adam
+    from popcorn_tpu_torch.train.state import make_optimizer, tree_flatten, tree_unflatten
+
+    g = torch.Generator().manual_seed(1701)
+    shapes = [(), (1,), (3,), (1023,), (1025,), (5, 7, 3), (3, 3, 5, 7), (4097,), (9001,),
+              (1, 1), (3, 3, 1, 1), (2, 2, 13, 3)]
+    def rand(shape):
+        return torch.randn(shape, generator=g).to(dev)
+
+    params = tree_unflatten(((f"l{i:02d}", "w"), rand(s)) for i, s in enumerate(shapes))
+    params = {**params, "head": {"l4": {"w": rand((5, 2))}}}
+    flat = tree_flatten(params)
+    grads = tree_unflatten(
+        (p, (rand(v.shape[::-1]).permute(*range(v.dim() - 1, -1, -1)) if v.dim() > 1
+             else torch.zeros_like(v) if v.numel() == 1023 else rand(v.shape)))
+        for p, v in flat)
+    assert sum(not d.is_contiguous() for _, d in tree_flatten(grads)) == 5
+    opt = make_optimizer(TrainConfig(gradient_clip=0.01, weight_decay=0.05, learning_rate=1e-2))
+    state = opt.init(params)
+    got = opt.update(grads, state, params)
+    _adam_close(got, opt.update_plain(grads, state, params), 1e-2)
+    launches = adam.launches
+    again = opt.update(grads, state, params)
+    assert adam.launches == launches + 1
+    for a, b in ((got[0], again[0]), (got[1]["mu"], again[1]["mu"]),
+                 (got[1]["nu"], again[1]["nu"])):
+        assert all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_flatten(a), tree_flatten(b)))
+    # an update on the last update's outputs (the table takes their
+    # pointers from its buffers), then on an earlier update's (views of
+    # other buffers, checked and read leaf by leaf)
+    for state_, params_ in ((again[1], again[0]), (got[1], got[0])):
+        _adam_close(opt.update(grads, state_, params_), opt.update_plain(grads, state_, params_),
+                    1e-2)
+
+
+def test_adam_wrapper_refuses_what_the_kernel_does_not_take(dev):
+    from popcorn_tpu_torch.config import TrainConfig
+    from popcorn_tpu_torch.train import adam
+    from popcorn_tpu_torch.train.state import make_optimizer
+
+    g = torch.Generator().manual_seed(1702)
+    opt = make_optimizer(TrainConfig())
+    params = {"a": {"w": _n(g, dev, 4, 3)}, "b": {"w": _n(g, dev, 5)}}
+    state = opt.init(params)
+    grads = {"a": {"w": _n(g, dev, 4, 3)}, "b": {"w": _n(g, dev, 5)}}
+    launches = adam.launches
+    with pytest.raises(TypeError):
+        opt.update({**grads, "b": {"w": grads["b"]["w"].double()}}, state, params)
+    with pytest.raises(ValueError, match="not contiguous"):
+        opt.update(grads, state, {**params, "a": {"w": _n(g, dev, 3, 4).t()}})
+    with pytest.raises(ValueError, match="not contiguous"):
+        opt.update(grads, {**state, "mu": {**state["mu"], "a": {"w": _n(g, dev, 3, 4).t()}}},
+                   params)
+    with pytest.raises(ValueError, match="expected"):
+        opt.update({**grads, "b": {"w": grads["b"]["w"].cpu()}}, state, params)
+    with pytest.raises(ValueError, match="gradient"):
+        opt.update({**grads, "b": {"w": _n(g, dev, 6)}}, state, params)
+    assert adam.launches == launches
+
+
+def test_adam_outputs_checkpoint_as_separate_tensors(dev, tmp_path):
+    """Leaves that are views of the update's flat buffers go into a .pth
+    as tensors of their own (no storage shared between leaves in the
+    file) and come back equal."""
+    from popcorn_tpu_torch.compat.weights import load_popcorn_from_dda, to_torch
+    from popcorn_tpu_torch.config import ModelConfig, TrainConfig
+    from popcorn_tpu_torch.train.checkpoint import restore_checkpoint, save_checkpoint
+    from popcorn_tpu_torch.train.state import make_optimizer, tree_flatten
+
+    params, consts = (to_torch(t, dev) for t in
+                      load_popcorn_from_dda(ModelConfig(biasinit=0.9407), head_seed=1))
+    opt = make_optimizer(TrainConfig())
+    params, state = opt.update(_grads(params, torch.Generator().manual_seed(1703), 1.0),
+                               opt.init(params), params)
+    path = str(tmp_path / "member.pth")
+    save_checkpoint(path, params, consts, state, epoch=1, iteration=1)
+    ck = torch.load(path, map_location="cpu", weights_only=True)
+    saved = [*ck["model"].values(), *ck["optimizer"]["mu"].values(),
+             *ck["optimizer"]["nu"].values()]
+    assert all(t.untyped_storage().nbytes() == t.numel() * t.element_size() for t in saved)
+    back = restore_checkpoint(path, dev)
+    for tree, ref in ((back["params"], params), (back["opt_state"]["mu"], state["mu"]),
+                      (back["opt_state"]["nu"], state["nu"])):
+        got = dict(tree_flatten(tree))
+        assert all(torch.equal(got[p], v) for p, v in tree_flatten(ref))

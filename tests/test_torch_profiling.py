@@ -178,6 +178,8 @@ def test_train_logs_each_span_median_and_resets(small_trainer):
     assert len(times) == 1
     for name in ("feed.batch", "trainer.upload", "trainer.readback") + STEP_SPANS:
         assert times[0][f"time/{name}_ms"] > 0
+    # the optimizer kernel's launches of the epoch: none on the CPU
+    assert times[0]["launches/adam"] == 0
     assert SPANS.summary() == {}
 
 
