@@ -151,8 +151,9 @@ Each of phases 9-14 prints its wall seconds.
 Kernel D (the head backward) is checked in phase 3 at the train phase's
 bucket shape (2x1024x1024), at 2x2048^2 and at a spatial rank's kept rows
 (1x2048x2048, as kernel C's 2-channel forward). The optimizer update
-(csrc/adam.cu, one launch a train step) follows E-H in phase 3, over the
-member's 62 leaves against Optimizer.update_plain. Then the {"kernels": [...]}
+(csrc/adam.cu, one call of two kernels a train step) follows E-H in phase
+3, over the DDA member's 62 leaves and a Prithvi-EO-2.0-300M member's 308
+against Optimizer.update_plain. Then the {"kernels": [...]}
 summary, the nvidia-smi name/power line, and last {"ok": true, "device":
 {...}}. Any failure raises: the script exits non-zero and prints no
 result. Run from the repository root:
@@ -1578,69 +1579,86 @@ def main() -> None:
     del x6, xs, xo, xb, bx1, bd1, bd2
     torch.cuda.empty_cache()
 
-    # the optimizer update (csrc/adam.cu) over the member's 62 trainable
-    # leaves at the member's defaults (clip 0.01, engaged), gradients
-    # shaped as the train step's (a conv weight's the permuted OIHW
-    # tensor); no TPU kernel: the JAX package leaves it to XLA (optax).
+    # the optimizer update (csrc/adam.cu) over the DDA member's 62 trainable
+    # leaves and a Prithvi-EO-2.0-300M member's 308, at the members'
+    # defaults (clip 0.01, engaged), gradients shaped as the train step's (a
+    # conv weight's the permuted OIHW tensor; every 4-dimensional leaf's
+    # here); no TPU kernel: the JAX package leaves it to XLA (optax).
     # kernel_ms is the whole Optimizer.update with its host work, plain_ms
-    # the plain chain (update_plain, the path before the kernel); the
-    # bound is 28 bytes a parameter at the HBM rate
+    # the plain chain (update_plain, the path before the kernel); device_ms
+    # the norm's and the step's kernels, each launched once a call; the
+    # bound is 32 bytes a parameter at the HBM rate (28 for the update, 4
+    # for the norm's read of the gradients)
     from popcorn_tpu_torch.compat.weights import load_popcorn_from_dda
     from popcorn_tpu_torch.config import ModelConfig, TrainConfig
+    from popcorn_tpu_torch.nn.init import init_prithvi_member
     from popcorn_tpu_torch.train import adam as ADAM
     from popcorn_tpu_torch.train import state as opt_state_mod
 
-    mparams = to_torch(load_popcorn_from_dda(ModelConfig(biasinit=0.9407), head_seed=1)[0], dev)
-    mflat = opt_state_mod.tree_flatten(mparams)
-    mgrads = opt_state_mod.tree_unflatten(
-        (q, (rand(v.shape[3], v.shape[2], v.shape[0], v.shape[1]).permute(2, 3, 1, 0)
-             if v.dim() == 4 else rand(*v.shape))) for q, v in mflat)
-    opt = opt_state_mod.make_optimizer(TrainConfig())
-    ostate = opt.init(mparams)
-    got_p, got_s = opt.update(mgrads, ostate, mparams)
-    ref_p, ref_s = opt.update_plain(mgrads, ostate, mparams)
-    torch.cuda.synchronize()
+    def adam_case(member, mparams):
+        mflat = opt_state_mod.tree_flatten(mparams)
+        mgrads = opt_state_mod.tree_unflatten(
+            (q, (rand(v.shape[3], v.shape[2], v.shape[0], v.shape[1]).permute(2, 3, 1, 0)
+                 if v.dim() == 4 else rand(*v.shape))) for q, v in mflat)
+        opt = opt_state_mod.make_optimizer(TrainConfig())
+        ostate = opt.init(mparams)
+        got_p, got_s = opt.update(mgrads, ostate, mparams)
+        ref_p, ref_s = opt.update_plain(mgrads, ostate, mparams)
+        torch.cuda.synchronize()
 
-    def flat_of(tree):
-        return [v for _, v in opt_state_mod.tree_flatten(tree)]
+        def flat_of(tree):
+            return [v for _, v in opt_state_mod.tree_flatten(tree)]
 
-    adam_err = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
-                   for t, r in ((got_s["mu"], ref_s["mu"]), (got_s["nu"], ref_s["nu"]))
-                   for a, b in zip(flat_of(t), flat_of(r)) if b.any())
-    # the parameters at rtol 1e-5 and 1e-5 of a step absolute
-    step_err = max(float(((a - b).abs() - 1e-5 * b.abs()).max())
-                   for a, b in zip(flat_of(got_p), flat_of(ref_p)))
-    n_par = sum(v.numel() for _, v in mflat)
-    if not (adam_err <= 1e-5 and step_err <= 1e-5 * opt.learning_rate):
-        raise AssertionError(f"adam: the kernel disagrees with the plain chain: moments "
-                             f"{adam_err}, params {step_err}")
+        adam_err = max(float(((a - b).abs() / b.abs().clamp_min(1e-30)).max())
+                       for t, r in ((got_s["mu"], ref_s["mu"]), (got_s["nu"], ref_s["nu"]))
+                       for a, b in zip(flat_of(t), flat_of(r)) if b.any())
+        # the parameters at rtol 1e-5 and 1e-5 of a step absolute
+        step_err = max(float(((a - b).abs() - 1e-5 * b.abs()).max())
+                       for a, b in zip(flat_of(got_p), flat_of(ref_p)))
+        n_par = sum(v.numel() for _, v in mflat)
+        if not (adam_err <= 1e-5 and step_err <= 1e-5 * opt.learning_rate):
+            raise AssertionError(f"adam ({member}): the kernel disagrees with the plain chain: "
+                                 f"moments {adam_err}, params {step_err}")
+        del got_p, got_s, ref_p, ref_s
 
-    def adam_run():
-        return opt.update(mgrads, ostate, mparams)
+        def adam_run():
+            return opt.update(mgrads, ostate, mparams)
 
-    launches_before = ADAM.launches
-    k_ms = time_ms(adam_run)
-    if ADAM.launches - launches_before != KERNEL_REPS + 2:
-        raise AssertionError(f"adam: {ADAM.launches - launches_before} launches in "
-                             f"{KERNEL_REPS + 2} updates")
-    t0 = time.perf_counter()
-    for _ in range(KERNEL_REPS):
-        adam_run()
-    host_ms = (time.perf_counter() - t0) * 1e3 / KERNEL_REPS
-    torch.cuda.synchronize()
-    d_ms = device_ms(adam_run, "adam_kernel")
-    p_ms = time_ms(lambda: opt.update_plain(mgrads, ostate, mparams))
-    nbytes = 28.0 * n_par
-    b_ms, by = bound(0.0, nbytes, PEAK["fp32"])
-    case = {"phase": "kernel", "kernel": "adam", "case": f"member {len(mflat)} leaves {n_par}",
-            "per_member_calls": 0, "moments_max_rel_err": adam_err, "max_abs_err": step_err,
-            "kernel_ms": k_ms, "host_issue_ms": host_ms, "device_ms": d_ms, "plain_ms": p_ms,
-            "library_ms": None, "bound_ms": b_ms, "bound_by": by, "mbytes": nbytes / 1e6,
-            "launches_a_call": 1}
-    emit(case)
-    cases.append(case)
-    del mparams, mgrads, ostate, got_p, got_s, ref_p, ref_s
-    torch.cuda.empty_cache()
+        launches_before = ADAM.launches
+        k_ms = time_ms(adam_run)
+        if ADAM.launches - launches_before != KERNEL_REPS + 2:
+            raise AssertionError(f"adam: {ADAM.launches - launches_before} launches in "
+                                 f"{KERNEL_REPS + 2} updates")
+        t0 = time.perf_counter()
+        for _ in range(KERNEL_REPS):
+            adam_run()
+        host_ms = (time.perf_counter() - t0) * 1e3 / KERNEL_REPS
+        torch.cuda.synchronize()
+        # each kernel's device time; device_ms raises unless the trace holds
+        # each once a call
+        norm_ms = device_ms(adam_run, "adam_norm_partial")
+        step_ms = device_ms(adam_run, "adam_grid_step")
+        p_ms = time_ms(lambda: opt.update_plain(mgrads, ostate, mparams))
+        nbytes = 32.0 * n_par
+        b_ms, by = bound(0.0, nbytes, PEAK["fp32"])
+        lay = opt.kernel.layout
+        case = {"phase": "kernel", "kernel": "adam", "case": f"{member} {len(mflat)} leaves {n_par}",
+                "per_member_calls": 0, "moments_max_rel_err": adam_err, "max_abs_err": step_err,
+                "kernel_ms": k_ms, "host_issue_ms": host_ms,
+                "device_ms": None if None in (norm_ms, step_ms) else norm_ms + step_ms,
+                "norm_device_ms": norm_ms, "step_device_ms": step_ms, "plain_ms": p_ms,
+                "library_ms": None, "bound_ms": b_ms, "bound_by": by, "mbytes": nbytes / 1e6,
+                "chunk": lay.chunk, "blocks": -(-lay.total // lay.chunk), "launches_a_call": 2}
+        emit(case)
+        cases.append(case)
+        del mparams, mgrads, ostate
+        torch.cuda.empty_cache()
+
+    adam_case("member", to_torch(load_popcorn_from_dda(ModelConfig(biasinit=0.9407),
+                                                       head_seed=1)[0], dev))
+    adam_case("prithvi_eo2_300m member",
+              init_prithvi_member(1, ModelConfig(feature_extractor="prithvi_eo2_300m",
+                                                 biasinit=0.9407), dev)[0])
     if args.kernels:
         return
 
@@ -2021,7 +2039,7 @@ def main() -> None:
                     upd_rel = max(upd_rel, float((du - du_ref).norm() / du_ref.norm()))
             # on the card every tier runs the head through kernels C and D,
             # the builder (and the frozen blocks) through kernels A and B,
-            # and the update as one launch of adam.cu
+            # and the update as one call of adam.cu
             launched = dict(zip(("double_conv", "up_block", "head", "head_bwd", "adam"),
                                 tier_launches))
             step_ok = (loss_rel <= STEP_RTOL and pc_rel <= STEP_RTOL

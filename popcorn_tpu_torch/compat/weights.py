@@ -14,7 +14,13 @@ Checkpoints use the reference's key names (``sar_stream.*``,
 ``optical_stream.*``, ``fusion_out_conv.conv`` in the DDA checkpoint;
 ``unetmodel.*``, ``building_extractor.*``, ``head.{0,2,4,6}.*`` in a POPCORN
 ``.pth``), so members pass between the reference, the JAX package and the
-port. Conversions run in numpy float32 on the host, the same arithmetic as
+port. A member with a Prithvi-EO-2.0 extractor (nn/prithvi.py) holds
+``encoder.*`` under Prithvi's own names (``encoder.patch_embed.proj.*``,
+``encoder.cls_token``, ``encoder.blocks.{i}.{norm1, attn.qkv, attn.proj,
+norm2, mlp.fc1, mlp.fc2}.*``, ``encoder.norm.*``) and ``neck.*`` in place
+of ``unetmodel.*``, and loads strictly: a key missing or left over
+raises, except the published ``encoder.pos_embed`` buffer, which the
+encoder recomputes for each grid. Conversions run in numpy float32 on the host, the same arithmetic as
 popcorn_tpu/compat/torch_convert.py, so both packages load bit-identical
 weights.
 """
@@ -195,9 +201,79 @@ def from_jax_dda(params: Tree, bn_params: Tree, bn_state: Tree, device="cpu") ->
     return to_torch(params, device), to_torch(bn_params, device), to_torch(bn_state, device)
 
 
+# a Prithvi block's leaves in the port's tree and under Prithvi's names
+PRITHVI_BLOCK = (("norm1", "norm1"), ("qkv", "attn.qkv"), ("proj", "attn.proj"),
+                 ("norm2", "norm2"), ("fc1", "mlp.fc1"), ("fc2", "mlp.fc2"))
+PRITHVI_PROBE = "encoder.patch_embed.proj.weight"
+_WB = (("w", "weight"), ("b", "bias"))
+
+
+def prithvi_names(depth: int) -> Dict[Tuple[str, ...], str]:
+    """{tree path: state-dict key} of a Prithvi member's encoder and neck."""
+    out = {("encoder", "cls_token"): "encoder.cls_token"}
+    mods = [(("encoder", "patch_embed"), "encoder.patch_embed.proj"),
+            (("encoder", "norm"), "encoder.norm"), (("neck",), "neck")]
+    mods += [(("encoder", "blocks", str(i), leaf), f"encoder.blocks.{i}.{name}")
+             for i in range(depth) for leaf, name in PRITHVI_BLOCK]
+    for path, name in mods:
+        for k, suffix in _WB:
+            out[path + (k,)] = f"{name}.{suffix}"
+    return out
+
+
+def _prithvi_depth(sd) -> int:
+    return len({k.split(".")[2] for k in sd if k.startswith("encoder.blocks.")})
+
+
+def prithvi_from_state(sd: Dict[str, np.ndarray]) -> Tree:
+    """The encoder and neck ({'encoder', 'neck'}) of a Prithvi member's
+    state dict, loaded strictly: every key of ``prithvi_names`` present,
+    no other ``encoder.*`` or ``neck.*`` key but ``encoder.pos_embed``.
+    The Conv3d patch embedding (D, C, 1, P, P) loses its time axis."""
+    names = prithvi_names(_prithvi_depth(sd))
+    missing = sorted(set(names.values()) - set(sd))
+    extra = sorted(k for k in sd if k.split(".")[0] in ("encoder", "neck")
+                   and k not in set(names.values()) and k != "encoder.pos_embed")
+    if missing or extra:
+        raise KeyError(f"Prithvi member: missing keys {missing[:8]}, unexpected keys {extra[:8]}")
+    out: Tree = {}
+    for path, key in names.items():
+        v = sd[key]
+        if path == ("encoder", "patch_embed", "w"):
+            v = v[:, :, 0]
+        node = out
+        for k in path[:-1]:
+            node = node.setdefault(k, {})
+        node[path[-1]] = v
+    return out
+
+
+def prithvi_to_state(params: Tree) -> Dict[str, np.ndarray]:
+    """``prithvi_from_state``'s inverse: Prithvi's names and shapes."""
+    out = {}
+    for path, key in prithvi_names(len(params["encoder"]["blocks"])).items():
+        node = params
+        for k in path:
+            node = node[k]
+        v = _f32(node)
+        out[key] = v[:, :, None] if path == ("encoder", "patch_embed", "w") else v
+    return out
+
+
 def load_popcorn_checkpoint(path: str, device="cpu") -> Tuple[Tree, Tree]:
-    """A POPCORN .pth training checkpoint as (params, consts)."""
+    """A POPCORN .pth training checkpoint as (params, consts): the UNet
+    member's, or a Prithvi member's ({'encoder', 'neck', 'head'} and the
+    builder alone in consts, strictly: module docstring)."""
     sd = load_torch_state(path)
+    if PRITHVI_PROBE in sd:
+        extra = sorted(k for k in sd if k.split(".")[0] not in (
+            "encoder", "neck", "head", "building_extractor"))
+        if extra:
+            raise KeyError(f"Prithvi member: unexpected keys {extra[:8]}")
+        builder, builder_bn = dual_stream_to_tree(sd, prefix="building_extractor.")
+        params = {**prithvi_from_state(sd), "head": head_to_tree(sd)}
+        consts = {"builder": {"params": builder, "bn": builder_bn}}
+        return to_torch(params, device), to_torch(consts, device)
     unet, unet_bn = dual_stream_to_tree(sd, prefix="unetmodel.")
     builder, builder_bn = dual_stream_to_tree(sd, prefix="building_extractor.")
     params = {"unet": unet, "head": head_to_tree(sd)}
@@ -265,9 +341,11 @@ def save_popcorn_checkpoint(
 ) -> None:
     """Write (params, consts) as a reference .pth training checkpoint
     ({'model': sd, 'epoch', 'iter'} with unetmodel.*/building_extractor.*/
-    head.* keys, run_train.py:445-456), plus the optimizer state under
+    head.* keys, run_train.py:445-456, or a Prithvi member's encoder.* and
+    neck.* in place of unetmodel.*), plus the optimizer state under
     'optimizer' when given (train/checkpoint.py)."""
-    sd = dual_stream_from_tree(params["unet"], consts["unet_bn"], "unetmodel.")
+    sd = (prithvi_to_state(params) if "encoder" in params
+          else dual_stream_from_tree(params["unet"], consts["unet_bn"], "unetmodel."))
     sd.update(
         dual_stream_from_tree(
             consts["builder"]["params"], consts["builder"]["bn"], "building_extractor."

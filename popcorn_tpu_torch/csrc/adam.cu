@@ -1,5 +1,5 @@
 // adam.cu — the train step's optimizer update: global-norm clipping, weight
-// decay and Adam over every trainable leaf, in one launch.
+// decay and Adam over every trainable leaf, in one call of two kernels.
 //
 // Replaces no TPU kernel: the JAX package leaves this update to XLA through
 // optax (popcorn_tpu/train/state.py::make_optimizer). Its plain version is
@@ -18,28 +18,33 @@
 // contraction into FMAs. Only the norm's sum runs in another order.
 //
 // What bounds it on the H100: bytes, 28 a parameter (p, g, mu, nu read,
-// p, mu, nu written): 1.10 MB for the member's 39,333 parameters, 0.33 us at
-// 3.35 TB/s. The host's issue of the plain chain's launches, not the
-// card, is what it replaces.
+// p, mu, nu written), and 4 more for the norm's read of g: 1.26 MB for the
+// DDA member's 39,333 parameters, 0.38 us at 3.35 TB/s; 9.9 GB for a
+// Prithvi-EO-2.0-300M member's 308 M, 2.9 ms. For the small member the
+// host's issue of the plain chain's launches, not the card, is what it
+// replaces.
 //
-// Design. One block of 1024 threads. The norm has to be known before any
-// update, and a whole-grid barrier would need a cooperative launch or a
-// second kernel; one block reduces it with a fixed-order tree (warp
-// shuffles, then one warp over the warp sums), no atomics, so the result
-// is the same bits on every run and on every data-parallel rank. Both
-// passes walk the concatenation of all leaves with a stride of 1024: each
-// thread follows a cursor through the leaf table (its elements only move
-// forward), and keeps AU elements' loads in flight before it uses any.
-// The second pass reads the gradients again, from L2. The gradient of a
-// leaf may be a strided view (a conv weight's gradient is the permuted
-// OIHW tensor): it is read through its strides. p, mu and nu are
-// contiguous; the outputs are three flat buffers that the wrapper cuts into
-// leaves at the offsets it chose (train/adam.py).
+// Design. A grid of blocks of GT threads, one a chunk of the concatenation
+// of all leaves (the wrapper sizes the chunks: train/adam.py::chunk_for).
+// The norm has to be known before any update; it is reduced in two
+// fixed-order stages, no atomics, so the result is the same bits on every
+// run and on every data-parallel rank: adam_norm_partial writes each
+// chunk's sum of squares (each thread's elements in order, then a fixed
+// tree over the block: warp shuffles, then one warp over the warp sums);
+// adam_grid_step's every block sums the partials in the same fixed order
+// before it updates its own chunk, so all blocks hold the same norm. Each
+// thread finds its first leaf by a binary search of the table, then
+// follows a cursor through it (its elements only move forward), and keeps
+// AU elements' loads in flight before it uses any. The step reads the
+// gradients again, from L2 where they still are. The gradient of a leaf
+// may be a strided view (a conv weight's gradient is the permuted OIHW
+// tensor): it is read through its strides. p, mu and nu are contiguous;
+// the outputs are three flat buffers that the wrapper cuts into leaves at
+// the offsets it chose (train/adam.py).
 #include <cuda_runtime.h>
 
 namespace popcorn {
 
-constexpr int AT = 1024;  // threads: the one block
 constexpr int AU = 4;     // elements a thread has in flight
 constexpr long long DECAY = 1;
 constexpr long long STRIDED = 2;
@@ -97,62 +102,90 @@ struct Cursor {
   }
 };
 
-__global__ void __launch_bounds__(AT, 1)
-adam_kernel(const AdamLeaf* __restrict__ leaves, long long total, float* __restrict__ p_out,
-            float* __restrict__ mu_out, float* __restrict__ nu_out, float clip, float wd,
-            float b1, float b2, float one_m_b1, float one_m_b2, float eps, float bc1, float bc2,
-            float neg_lr) {
-  __shared__ float warp_sums[AT / 32];
-  __shared__ float s_norm;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  Cursor c;
+constexpr int GT = 512;  // threads a block
 
-  // 1. the global norm of the gradients
+// the row of the leaf that holds element e: the last whose start is <= e
+__device__ __forceinline__ int find_leaf(const AdamLeaf* leaves, int n_leaves, long long e) {
+  int lo = 0, hi = n_leaves - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (leaves[mid].start <= e) lo = mid; else hi = mid - 1;
+  }
+  return lo;
+}
+
+// the sum of v over the block in a fixed order: each warp's tree, then one
+// warp over the warp sums; every thread gets it
+__device__ __forceinline__ float block_sum(float v, float* warp_sums) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+  if (lane == 0) warp_sums[warp] = v;
+  __syncthreads();
+  if (warp == 0) {
+    v = lane < (int)(blockDim.x >> 5) ? warp_sums[lane] : 0.f;
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
+    if (lane == 0) warp_sums[0] = v;
+  }
+  __syncthreads();
+  return warp_sums[0];
+}
+
+__global__ void __launch_bounds__(GT)
+adam_norm_partial(const AdamLeaf* __restrict__ leaves, int n_leaves, long long total,
+                  long long chunk, float* __restrict__ partial) {
+  __shared__ float warp_sums[GT / 32];
+  const long long c0 = (long long)blockIdx.x * chunk;
+  const long long c1 = c0 + chunk < total ? c0 + chunk : total;
+  float acc = 0.f;
+  Cursor c;
+  c.load(leaves + find_leaf(leaves, n_leaves, c0 + threadIdx.x < c1 ? c0 + threadIdx.x : c0));
+  for (long long base = c0; base < c1; base += (long long)GT * AU) {
+    float v[AU];
+#pragma unroll
+    for (int u = 0; u < AU; ++u) {
+      const long long e = base + (long long)u * GT + threadIdx.x;
+      v[u] = 0.f;
+      if (e < c1) {
+        c.seek(e);
+        v[u] = c.grad((int)(e - c.start));
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < AU; ++u) acc = fmaf(v[u], v[u], acc);
+  }
+  acc = block_sum(acc, warp_sums);
+  if (threadIdx.x == 0) partial[blockIdx.x] = acc;
+}
+
+__global__ void __launch_bounds__(GT)
+adam_grid_step(const AdamLeaf* __restrict__ leaves, int n_leaves, long long total,
+               long long chunk, const float* __restrict__ partial, float* __restrict__ p_out,
+               float* __restrict__ mu_out, float* __restrict__ nu_out, float clip, float wd,
+               float b1, float b2, float one_m_b1, float one_m_b2, float eps, float bc1,
+               float bc2, float neg_lr) {
+  __shared__ float warp_sums[GT / 32];
   float norm = 0.f;
   if (clip > 0.f) {
     float acc = 0.f;
-    c.load(leaves);
-    for (long long base = 0; base < total; base += (long long)AT * AU) {
-      float v[AU];
-#pragma unroll
-      for (int u = 0; u < AU; ++u) {
-        const long long e = base + (long long)u * AT + tid;
-        v[u] = 0.f;
-        if (e < total) {
-          c.seek(e);
-          v[u] = c.grad((int)(e - c.start));
-        }
-      }
-#pragma unroll
-      for (int u = 0; u < AU; ++u) acc = fmaf(v[u], v[u], acc);
-    }
-#pragma unroll
-    for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-    if (lane == 0) warp_sums[warp] = acc;
-    __syncthreads();
-    if (warp == 0) {
-      acc = warp_sums[lane];
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) acc += __shfl_down_sync(0xffffffffu, acc, o);
-      if (lane == 0) s_norm = __fsqrt_rn(acc);
-    }
-    __syncthreads();
-    norm = s_norm;
+    for (int i = threadIdx.x; i < (int)gridDim.x; i += GT) acc += partial[i];
+    norm = __fsqrt_rn(block_sum(acc, warp_sums));
   }
-  // torch.where(norm < clip, g, g / norm * clip): a NaN norm clips
   const bool clipped = clip > 0.f && !(norm < clip);
-
-  // 2. clip, decay, moments and the step
-  c.load(leaves);
-  for (long long base = 0; base < total; base += (long long)AT * AU) {
+  const long long c0 = (long long)blockIdx.x * chunk;
+  const long long c1 = c0 + chunk < total ? c0 + chunk : total;
+  Cursor c;
+  c.load(leaves + find_leaf(leaves, n_leaves, c0 + threadIdx.x < c1 ? c0 + threadIdx.x : c0));
+  for (long long base = c0; base < c1; base += (long long)GT * AU) {
     float pv[AU], gv[AU], mv[AU], vv[AU];
     int o[AU];
     bool decay[AU];
 #pragma unroll
     for (int u = 0; u < AU; ++u) {
-      const long long e = base + (long long)u * AT + tid;
+      const long long e = base + (long long)u * GT + threadIdx.x;
       o[u] = -1;
-      if (e < total) {
+      if (e < c1) {
         c.seek(e);
         const int i = (int)(e - c.start);
         pv[u] = c.p[i];
@@ -182,15 +215,23 @@ adam_kernel(const AdamLeaf* __restrict__ leaves, long long total, float* __restr
 }  // namespace popcorn
 
 // leaves: the device copy of the wrapper's table, n_leaves rows whose n sum
-// to total. Returns a cudaError_t (0 on success); launches nothing for an
-// empty table.
+// to total; ceil(total / chunk) blocks, ``partial`` one float a block (left
+// unread and unwritten where clip is 0). Returns a cudaError_t (0 on
+// success); launches nothing for an empty table.
 extern "C" int popcorn_adam(const popcorn::AdamLeaf* leaves, int n_leaves, long long total,
-                            float* p_out, float* mu_out, float* nu_out, float clip, float wd,
-                            float b1, float b2, float one_m_b1, float one_m_b2, float eps,
-                            float bc1, float bc2, float neg_lr, void* stream) {
-  if (n_leaves <= 0 || total <= 0) return 0;
-  popcorn::adam_kernel<<<1, popcorn::AT, 0, static_cast<cudaStream_t>(stream)>>>(
-      leaves, total, p_out, mu_out, nu_out, clip, wd, b1, b2, one_m_b1, one_m_b2, eps, bc1, bc2,
-      neg_lr);
+                            long long chunk, float* partial, float* p_out, float* mu_out,
+                            float* nu_out, float clip, float wd, float b1, float b2,
+                            float one_m_b1, float one_m_b2, float eps, float bc1, float bc2,
+                            float neg_lr, void* stream) {
+  if (n_leaves <= 0 || total <= 0 || chunk <= 0) return 0;
+  const long long blocks = (total + chunk - 1) / chunk;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (clip > 0.f)
+    popcorn::adam_norm_partial<<<(unsigned)blocks, popcorn::GT, 0, s>>>(leaves, n_leaves, total,
+                                                                         chunk, partial);
+  popcorn::adam_grid_step<<<(unsigned)blocks, popcorn::GT, 0, s>>>(
+      leaves, n_leaves, total, chunk, partial, p_out, mu_out, nu_out, clip, wd, b1, b2, one_m_b1,
+      one_m_b2, eps, bc1, bc2, neg_lr);
   return (int)cudaGetLastError();
 }

@@ -64,6 +64,7 @@ from .feed import (
     TRANSPORT_KEYS,
     WeaksupFeed,
     bucket_dim,
+    extents_after,
     host_tensor,
     to_bfloat16,
     widen_u16,
@@ -839,6 +840,7 @@ class DeviceWeaksupFeed(WeaksupFeed):
             [it["census_idx"] for it in items], np.float32
         )
         batch["season"] = np.asarray([it["season"] for it in items], np.int32)
+        batch["extent"] = extents_after([self._item_hw(it) for it in items], bh, bw, g)
         if rows is not None:
             batch["rows"] = rows
         return self._finish_batch(batch, rng)

@@ -112,6 +112,28 @@ def pad_item_to(
     return out
 
 
+def extents_after(hw: Sequence[Tuple[int, int]], bh: int, bw: int, g) -> torch.Tensor:
+    """(B, 4) int64 rows (r0, r1, c0, c1) on the host, a CPU tensor as the
+    batch's other per-sample values may be: where each item's (h, w) pixels,
+    padded at the top left of a (bh, bw) bucket, lie after the batch's
+    geometric draw ``g`` (aug/augment.py::apply_geometric's vflip, hflip,
+    then k x 90 degrees counter-clockwise; None for no draw). A batch's
+    'extent', which an extractor that must not see the padding reads
+    (nn/prithvi.py)."""
+    out = []
+    for h, w in hw:
+        r0, r1, c0, c1, H, W = 0, h, 0, w, bh, bw
+        if g is not None:
+            if g.vflip:
+                r0, r1 = H - r1, H - r0
+            if g.hflip:
+                c0, c1 = W - c1, W - c0
+            for _ in range(g.rot_k):  # np.rot90: out[i, j] = in[j, W - 1 - i]
+                r0, r1, c0, c1, H, W = W - c1, W - c0, r0, r1, W, H
+        out.append((r0, r1, c0, c1))
+    return torch.tensor(out, dtype=torch.int64).reshape(-1, 4)
+
+
 # Modalities the transport rule applies to: the normalized image inputs
 # (their z-score runs on device AFTER the upcast, so transport precision
 # only touches raw sensor values). Masks/counts/targets always ride exact.
@@ -219,8 +241,9 @@ class WeaksupFeed:
         return len(self.index) // self.batch_size
 
     def _make_batch(self, items: List[Dict], rng: np.random.Generator) -> Dict:
-        h = max(it["admin_mask"].shape[0] for it in items)
-        w = max(it["admin_mask"].shape[1] for it in items)
+        hw = [it["admin_mask"].shape for it in items]
+        h = max(d[0] for d in hw)
+        w = max(d[1] for d in hw)
         bh, bw = bucket_dim(h, self.ladder), bucket_dim(w, self.ladder)
         items = [pad_item_to(it, bh, bw) for it in items]
         batch: Dict = {}
@@ -258,8 +281,9 @@ class WeaksupFeed:
         )
         batch["season"] = np.asarray([it["season"] for it in items], np.int32)
 
+        g = draw_general(rng) if self.augment else None
+        batch["extent"] = extents_after(hw, bh, bw, g)
         if self.augment:
-            g = draw_general(rng)
             for key in ("S2", "S1", "VIIRS", "building_counts", "building_segmentation"):
                 if key in batch:
                     batch[key] = np.ascontiguousarray(

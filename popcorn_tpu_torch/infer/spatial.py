@@ -52,7 +52,7 @@ from ..data.normalize import NormStats, normalize_and_assemble
 from ..dist.mesh import Mesh, resolve_device
 from ..dist.rows import HALO, Rows, member_window, rank_rows
 from ..io.geotiff import has_nan
-from ..nn.popcorn import compute_dtype, create_building_score, popcorn_predict
+from ..nn.popcorn import check_config, compute_dtype, create_building_score, popcorn_predict
 from .sliding import _upload, finalize_maps
 
 Tree = Dict
@@ -374,6 +374,7 @@ def run_spatial_inference(
     from ..data.dataset import interpolate_nan
     from .device_feed import season_arrays
 
+    check_config(mcfg, spatial=True)
     members = list(members)
     nd = data_axis_size(mesh)
     ne = 1 if mesh is None else mesh.n_ensemble

@@ -16,8 +16,9 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 
-from ..compat.weights import init_head, to_torch
-from ..config import ModelConfig
+from ..compat.weights import init_head, load_dda, to_torch
+from ..config import ModelConfig, find_dda_checkpoint
+from . import prithvi
 from .unet import OPT_IN, SAR_IN
 
 Tree = Dict[str, Any]
@@ -98,3 +99,18 @@ def init_popcorn(seed: int, cfg: ModelConfig) -> Tuple[Tree, Tree]:
         "builder": {"params": to_torch(init_dual_stream(rng)), "bn": to_torch(init_dual_stream_bn())},
     }
     return params, consts
+
+
+def init_prithvi_member(seed: int, cfg: ModelConfig, device="cpu") -> Tuple[Tree, Tree]:
+    """A fresh member with a Prithvi extractor (nn/prithvi.py): the seeded
+    encoder and neck drawn on ``device``, a head as ``init_popcorn``'s,
+    and the building extractor the DDA checkpoint's where ``pretrained``
+    finds it (random otherwise, as ``init_popcorn``'s)."""
+    params = {**prithvi.init_prithvi(prithvi.PRESETS[cfg.feature_extractor], seed, device),
+              "head": to_torch(init_head(seed, biasinit=cfg.biasinit), device)}
+    if cfg.pretrained and find_dda_checkpoint():
+        builder, bn = load_dda(device=device)
+    else:
+        rng = np.random.default_rng(seed)
+        builder, bn = to_torch(init_dual_stream(rng), device), to_torch(init_dual_stream_bn(), device)
+    return params, {"builder": {"params": builder, "bn": bn}}

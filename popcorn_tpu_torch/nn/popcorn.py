@@ -45,6 +45,15 @@ computes in float32, as in the JAX package. JAX's eval of an unpadded
 patch takes its packed engine, whose unfused head is packed_head_apply,
 the same four products in block-diagonal form (:599-613); on the port's
 one plain engine the unfused route stands for both.
+
+The feature extractor (``cfg.feature_extractor``): 'DDA', the dual-stream
+UNet above, or a Prithvi-EO-2.0 encoder with its neck (nn/prithvi.py,
+``-fe prithvi_eo2_300m``), whose parameters replace the tree's 'unet'
+with 'encoder' and 'neck'. It runs each sample on its extent in the
+bucket (``inputs['extent']``, the whole input where absent) and needs no
+padding; the building extractor, the head, the occupancy product and the
+sparsity mask are the same for both. It has no int8 path, no whole-frame
+eval and no spatial training: ``check_config`` refuses them.
 """
 
 from __future__ import annotations
@@ -55,6 +64,7 @@ import torch
 
 from ..config import ModelConfig
 from .head import head_apply, head_train, head_unfused
+from . import prithvi
 from .ops import add_padding, revert_padding
 from .quant import calibrate_stream
 from .unet import SAR_IN, building_logits, dual_stream_features, unet_stream_qs
@@ -95,8 +105,25 @@ def compute_dtype(cfg: ModelConfig) -> Optional[torch.dtype]:
     return COMPUTE_DTYPES[cfg.compute_dtype]
 
 
-def check_config(cfg: ModelConfig) -> None:
-    """Raise for model options the port does not run, or that conflict."""
+def check_config(cfg: ModelConfig, *, spatial: bool = False, spatial_train: bool = False) -> None:
+    """Raise for model options the port does not run, or that conflict;
+    ``spatial`` and ``spatial_train`` are the run's whole-frame eval and
+    spatial training."""
+    fe = cfg.feature_extractor
+    if fe != "DDA" and fe not in prithvi.PRESETS:
+        raise ValueError(f"feature_extractor={fe!r}: 'DDA' or one of {tuple(prithvi.PRESETS)}")
+    if fe in prithvi.PRESETS:
+        if cfg.quantize:
+            raise ValueError(f"--quantize {cfg.quantize} runs the UNet's int8 kernels; the "
+                             f"{fe} member has no int8 path: drop --quantize or use -fe DDA")
+        if spatial:
+            raise ValueError(f"--spatial cuts frames into row blocks with the UNet's receptive "
+                             f"field as context; the {fe} encoder attends over a whole sample: "
+                             "drop --spatial")
+        if spatial_train:
+            raise ValueError(f"--spatial_train splits a crop's rows over ranks by the UNet's "
+                             f"receptive field; the {fe} encoder attends over the whole crop: "
+                             "drop --spatial_train")
     if cfg.compute_dtype not in COMPUTE_DTYPES:
         raise ValueError(f"compute_dtype={cfg.compute_dtype!r}: one of {tuple(COMPUTE_DTYPES)}")
     if cfg.layout not in LAYOUTS:
@@ -250,11 +277,16 @@ def popcorn_forward(
 ) -> Dict[str, Any]:
     """Full POPCORN forward pass (model/popcorn.py:100-193).
 
-    params: {'unet': dual-stream tree, 'head': {'l1'..'l4': {w,b}}}
+    params: {'unet': dual-stream tree, 'head': {'l1'..'l4': {w,b}}}, or
+            with a Prithvi extractor {'encoder', 'neck', 'head'}
     consts: {'unet_bn': BN constants, 'builder': {'params','bn'}}
+            ('unet_bn' only with the UNet extractor)
     inputs: {'input': (B,H,W,C) normalized modality concat,
              optional 'building_counts': (B,H,W) or (B,H,W,1),
-             optional 'admin_mask': (B,H,W), 'census_idx': (B,)}
+             optional 'admin_mask': (B,H,W), 'census_idx': (B,),
+             optional 'extent': (B, 4) host ints (r0, r1, c0, c1), each
+             sample's pixels in the bucket, which a Prithvi extractor
+             reads (module docstring)}
 
     ``train`` differentiates the UNet blocks (except those frozen by the
     memory tiers ``encoder_no_grad`` / ``unet_no_grad``, which run their
@@ -308,6 +340,15 @@ def popcorn_forward(
     if not sparse:
         mask = None
 
+    if cfg.feature_extractor in prithvi.PRESETS:
+        x6 = reorder_to_dda(x, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir)
+        feats = prithvi.features(
+            params, x6, inputs.get("extent"), prithvi.PRESETS[cfg.feature_extractor], dtype,
+            encoder_no_grad=not train or encoder_no_grad,
+            neck_no_grad=not train or unet_no_grad,
+        )
+        return _head_and_maps(params, feats, building_counts, inputs, cfg, train, dtype, mask,
+                              keep)
     xp, pad = (x, (None,) * 4) if padding is None else add_padding(x, force=padding)
     x6 = reorder_to_dda(xp, s1=cfg.s1, s2=cfg.s2, nir=cfg.nir)
     # the JAX package quantizes only in its packed engine, which it takes
@@ -334,6 +375,12 @@ def popcorn_forward(
             quantize=quantize_int8(cfg, train) and unpadded, dtype=dtype,
         )
     feats = revert_padding(feats, pad)
+    return _head_and_maps(params, feats, building_counts, inputs, cfg, train, dtype, mask, keep)
+
+
+def _head_and_maps(params, feats, building_counts, inputs, cfg, train, dtype, mask, keep):
+    """popcorn_forward after the feature extractor: the head on the
+    (B, H, W, 16) features, the occupancy product and the sums."""
     if keep is not None:
         feats = feats[:, keep[0], keep[1]]
     feats = feats.contiguous()

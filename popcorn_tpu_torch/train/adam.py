@@ -1,4 +1,5 @@
-"""The optimizer update on the card: one launch of csrc/adam.cu.
+"""The optimizer update on the card: one call of csrc/adam.cu (its norm
+kernel, then its step kernel, over a grid of chunks of the leaves).
 
 ``AdamKernel.update`` is train/state.py::Optimizer's chain (global-norm
 clip, weight decay, Adam, -lr) over every leaf at once; its plain version
@@ -15,11 +16,12 @@ shape and strides (a gradient may be a strided view; parameters and
 moments must be contiguous). The table reaches the card in one
 non-blocking copy from pinned memory.
 
-The host work around the launch, not the card, sets the update's time,
-so it is kept to a few Python calls a leaf: a ``Layout`` holds what
-changes only with the parameters' structure, and parameters and moments
-that are the last update's own outputs are neither checked again nor
-asked for their pointers.
+The launch is the span ``adam.update`` (utils/profiling.py). For a
+small member the host work around the launch, not the card, sets the
+update's time, so it is kept to a few Python calls a leaf: a ``Layout``
+holds what changes only with the parameters' structure, and parameters
+and moments that are the last update's own outputs are neither checked
+again nor asked for their pointers.
 """
 
 from __future__ import annotations
@@ -33,9 +35,18 @@ from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from ..nn import cuda_lib
+from ..utils.profiling import span
 
-# launches of the update kernel, counted where the wrapper launches it
+# updates launched, counted where the wrapper launches them
 launches = 0
+# a block's chunk of elements (csrc/adam.cu): a multiple of its threads
+# (GT) times the elements each has in flight (AU), at most GRID_CHUNK,
+# sized so that a small member still spreads over about GRID_BLOCKS blocks
+# (two an SM of the H100): the DDA member's 39,333 elements take 20 blocks
+# of 2,048, a Prithvi member's 308 M take 4,702 of 65,536
+CHUNK_STEP = 512 * 4
+GRID_CHUNK = 1 << 16
+GRID_BLOCKS = 264
 
 # each leaf of the output buffers starts on a multiple of 64 elements (256
 # bytes), so the kernels and cuDNN read a parameter at the alignment of
@@ -48,8 +59,15 @@ TABLE_COLS = 16
 DECAY, STRIDED = 1, 2
 MAX_DIM = 4
 
-_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong] + [ctypes.c_void_p] * 3
-             + [ctypes.c_float] * 10 + [ctypes.c_void_p])
+_ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
+             + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 10 + [ctypes.c_void_p])
+
+
+def chunk_for(total: int) -> int:
+    """The elements of one block's chunk for ``total`` elements."""
+    per = -(-total // GRID_BLOCKS)
+    return min(GRID_CHUNK, max(CHUNK_STEP, -(-per // CHUNK_STEP) * CHUNK_STEP))
+
 
 def out_offsets(sizes: Sequence[int]) -> Tuple[List[int], int]:
     """Each leaf's first element in the output buffers, and their length:
@@ -88,6 +106,10 @@ class Layout:
             raise ValueError(f"adam: {self.padded} elements; the kernel indexes its buffers in "
                              "32 bits")
         self.total = sum(sizes)
+        self.chunk = chunk_for(self.total)
+        # one sum of squares a chunk (csrc/adam.cu's first stage), made on
+        # the first update
+        self.partial: Optional[torch.Tensor] = None
         self.views = [(s, _strides(s), o) for s, o in zip(shapes, self.offs)]
         self.rows, start = array("q"), 0
         for s, n, o, d in zip(shapes, sizes, self.offs, decay):
@@ -180,10 +202,15 @@ class AdamKernel:
         rows, lay = self.table(paths, p, g, mu, nu, decay)
         table = torch.frombuffer(rows, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
         bufs = tuple(torch.empty(lay.padded, device=dev, dtype=torch.float32) for _ in range(3))
-        fn = cuda_lib.function("adam", "popcorn_adam", _ARGTYPES)
         P = cuda_lib.ptr
-        rc = fn(P(table), len(p), lay.total, *(P(b) for b in bufs), clip, weight_decay, b1, b2,
-                1 - b1, 1 - b2, eps, bc1, bc2, -lr, cuda_lib.stream_ptr(dev))
+        hyper = (clip, weight_decay, b1, b2, 1 - b1, 1 - b2, eps, bc1, bc2, -lr,
+                 cuda_lib.stream_ptr(dev))
+        if lay.partial is None:
+            lay.partial = torch.empty(-(-lay.total // lay.chunk), device=dev, dtype=torch.float32)
+        fn = cuda_lib.function("adam", "popcorn_adam", _ARGTYPES)
+        with span("adam.update"):
+            rc = fn(P(table), len(p), lay.total, lay.chunk, P(lay.partial), *(P(b) for b in bufs),
+                    *hyper)
         cuda_lib.check(rc, "adam")
         launches += 1
         self.last = Outputs(bufs, *([b.as_strided(*v) for v in lay.views] for b in bufs))

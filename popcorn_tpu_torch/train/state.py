@@ -21,7 +21,9 @@ One step: photometric augmentation -> normalization -> sparse-masked
 POPCORN forward -> census loss * lam_weak -> backward -> update, with the
 memory-tier flags as arguments and TF32 off (nn/ops.py::float32_exact).
 The forward, the backward and the update are the spans ``step.forward``,
-``step.backward`` and ``step.optimizer`` (utils/profiling.py).
+``step.backward`` and ``step.optimizer`` (utils/profiling.py); a step in
+which a memory tier freezes the encoder adds to the counter
+``steps/encoder_frozen``.
 
 Data parallelism (``mesh``, dist/mesh.py): each rank holds its rows of
 the global batch (``shard_batch``) and computes the GLOBAL loss: the
@@ -73,7 +75,7 @@ from ..nn.popcorn import (
     popcorn_predict,
     sparsity_mask,
 )
-from ..utils.profiling import span
+from ..utils.profiling import count, span
 from . import adam
 
 Tree = Dict[str, Any]
@@ -82,7 +84,7 @@ Path = Tuple[str, ...]
 # Batch keys carrying one row per sample (everything else — 'photometric'
 # and future batch-level leaves — is shared by every microbatch).
 PER_SAMPLE_KEYS = (
-    "S2", "S1", "VIIRS", "admin_mask", "census_idx", "y", "building_counts"
+    "S2", "S1", "VIIRS", "admin_mask", "census_idx", "y", "building_counts", "extent"
 )
 
 
@@ -237,8 +239,9 @@ def _model_inputs(mcfg: ModelConfig, stats: NormStats, batch, photometric: bool)
         "admin_mask": batch["admin_mask"],
         "census_idx": batch["census_idx"],
     }
-    if "building_counts" in batch:
-        inputs["building_counts"] = batch["building_counts"]
+    for k in ("building_counts", "extent"):
+        if k in batch:
+            inputs[k] = batch[k]
     return inputs
 
 
@@ -429,6 +432,8 @@ class TrainStep:
 
     def __call__(self, params, opt_state, batch, generator=None, *, encoder_no_grad=False,
                  unet_no_grad=False, collect_watch=False, mask=None):
+        if encoder_no_grad:
+            count("steps/encoder_frozen")
         grads, aux = self.grads(params, batch, generator, encoder_no_grad=encoder_no_grad,
                                 unet_no_grad=unet_no_grad, mask=mask)
         if self.mesh is not None:

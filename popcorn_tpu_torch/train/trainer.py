@@ -69,10 +69,11 @@ from ..infer.sliding import _upload, resolve_device, run_sliding_inference
 from ..io.geotiff import GeoTIFF
 from ..losses.losses import get_loss, r2
 from ..losses.metrics import get_test_metrics
-from ..nn.init import init_popcorn
+from ..nn.init import init_popcorn, init_prithvi_member
 from ..nn.popcorn import check_config
+from ..nn.prithvi import PRESETS as PRITHVI_PRESETS
 from ..utils.log import MetricsLogger, NumberList, new_log
-from ..utils.profiling import SPANS, device_memory_stats, span
+from ..utils.profiling import COUNTERS, SPANS, device_memory_stats, span
 from . import adam
 from . import checkpoint as ckpt
 from .state import (
@@ -89,7 +90,8 @@ TRAIN_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx"
               "photometric", "valid")
 VAL_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx")
 # the keys of a training batch that carry one row per sample
-SHARD_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx", "y")
+SHARD_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask", "census_idx", "y",
+              "extent")
 # the image keys whose rows split over the ranks under spatial training
 # (popcorn_tpu/train/trainer.py's row_keys)
 ROW_KEYS = ("S2", "S1", "VIIRS", "building_counts", "admin_mask")
@@ -121,7 +123,7 @@ class Trainer:
         mesh=None,
     ):
         with span("trainer.init"):
-            check_config(mcfg)
+            check_config(mcfg, spatial_train=tcfg.spatial_train)
             self.device = resolve_device(device)
             self.paths = paths
             self.mcfg = mcfg
@@ -234,7 +236,9 @@ class Trainer:
 
             # model -----------------------------------------------------------
             with span("trainer.init.model"):
-                if mcfg.pretrained and find_dda_checkpoint():
+                if mcfg.feature_extractor in PRITHVI_PRESETS:
+                    params, consts = init_prithvi_member(tcfg.seed, mcfg, self.device)
+                elif mcfg.pretrained and find_dda_checkpoint():
                     params, consts = load_popcorn_from_dda(mcfg, head_seed=tcfg.seed)
                 else:
                     params, consts = init_popcorn(tcfg.seed, mcfg)
@@ -372,8 +376,9 @@ class Trainer:
                 )
             with span("trainer.upload"):
                 dev_batch = _upload(batch, self.device, TRAIN_KEYS)
-            if "row_block" in batch:
-                dev_batch["row_block"] = batch["row_block"]
+            for k in ("row_block", "extent"):  # host values the step reads
+                if k in batch:
+                    dev_batch[k] = batch[k]
             nxt = (dev_batch, batch, flags)
             if prev is not None:
                 yield prev
@@ -462,14 +467,17 @@ class Trainer:
             mem = device_memory_stats(self.device)
             if mem:
                 self.logger.log(mem, self.info["iter"])
-            # the epoch's median ms of each program span (utils/profiling.py),
-            # and its launches of the optimizer kernel (one a step on a card)
+            # the epoch's median ms of each program span and its totals of
+            # each program counter (utils/profiling.py), and its launches of
+            # the optimizer kernel (one a step on a card)
             times = SPANS.summary()
             if times:
                 self.logger.log({**{f"time/{k}_ms": v["median_ms"] for k, v in times.items()},
+                                 **COUNTERS.summary(),
                                  "launches/adam": adam.launches - adam_before},
                                 self.info["iter"])
             SPANS.reset()
+            COUNTERS.reset()
             if self.tcfg.save_model in ("last", "both"):
                 self.save_model("last")
             if (self.info["epoch"] + 1) % self.tcfg.val_every_n_epochs == 0:
@@ -492,6 +500,8 @@ class Trainer:
             preds, gts = [], []
             for batch in self._val_feed(ds).epoch(0):
                 dev_batch = _upload(batch, self.device, VAL_KEYS)
+                if "extent" in batch:
+                    dev_batch["extent"] = batch["extent"]
                 preds.append(self.eval_popcount(self.params, dev_batch).cpu().numpy())
                 gts.append(batch["y"])
             if not preds:

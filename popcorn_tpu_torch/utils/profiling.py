@@ -12,6 +12,11 @@ also marks the section in the trace (``record_function``), on the clock
 of the kernels. Spans go on the thread that drives the step: a trace
 reader that names the device's idle by the innermost span over it does
 not tell threads apart.
+
+A counter (``count(name, n)``) adds ``n`` to the process-wide
+``COUNTERS``: what a section did rather than how long it took (tokens a
+step's encoder attended, steps a memory tier froze). The train CLI logs
+both registries each epoch and resets them.
 """
 
 from __future__ import annotations
@@ -136,3 +141,32 @@ SPANS = Stopwatch()
 def span(name: str) -> _Section:
     """A section of the process-wide ``SPANS``: ``with span("step.forward"):``."""
     return SPANS.section(name)
+
+
+class Counters:
+    """Accumulating named counts. Safe to add to from any thread."""
+
+    def __init__(self):
+        self.totals: Dict[str, float] = {}
+        self._lock = threading.Lock()
+
+    def add(self, name: str, n: float = 1) -> None:
+        with self._lock:
+            self.totals[name] = self.totals.get(name, 0) + n
+
+    def reset(self) -> None:
+        with self._lock:
+            self.totals.clear()
+
+    def summary(self) -> Dict[str, float]:
+        with self._lock:
+            return dict(self.totals)
+
+
+# the program's counters (module docstring)
+COUNTERS = Counters()
+
+
+def count(name: str, n: float = 1) -> None:
+    """Add ``n`` to the process-wide counter ``name``."""
+    COUNTERS.add(name, n)

@@ -2,7 +2,8 @@
 runs the plain chain and launches nothing; the leaf table that
 train/adam.py hands csrc/adam.cu follows tree_flatten's order, with each
 leaf's sizes, offsets, decay flag and gradient strides, and takes the last
-update's outputs' pointers from their buffers; its layout is kept while
+update's outputs' pointers from their buffers; the kernel's chunks spread
+a small member over the card and cap a large one's; its layout is kept while
 the structure is; the wrapper refuses what the kernel does not take
 before anything is built. The
 kernel itself is held to the plain chain on the card
@@ -71,6 +72,14 @@ def test_out_offsets_align_every_leaf(sizes):
     assert offs[0] == 0 and total % adam.ALIGN == 0
     for o, n, nxt in zip(offs, sizes, offs[1:] + [total]):
         assert o % adam.ALIGN == 0 and o + n <= nxt < o + n + adam.ALIGN
+
+
+@pytest.mark.parametrize("total,chunk,blocks", [
+    (1, 2048, 1), (39_333, 2048, 20), (2048 * 264 + 1, 4096, 133), (308_090_194, 65536, 4702)])
+def test_chunks_spread_a_small_member_and_cap_a_large_one(total, chunk, blocks):
+    got = adam.chunk_for(total)
+    assert got == chunk and -(-total // got) == blocks and got % adam.CHUNK_STEP == 0
+    assert adam.Layout([("a",)], [torch.Size([total])], [True]).chunk == chunk
 
 
 def _leaves(seed):

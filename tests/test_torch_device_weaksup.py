@@ -20,7 +20,7 @@ from popcorn_tpu_torch.data.device_weaksup import DeviceWeaksupFeed, Ineligible
 from popcorn_tpu_torch.data.feed import WeaksupFeed
 from popcorn_tpu_torch.data.synthetic import make_synthetic_region
 from popcorn_tpu_torch.io.geotiff import GeoTIFF, write_geotiff
-from torch_feed_helpers import assert_batches_equal, uploaded
+from torch_feed_helpers import assert_batches_equal, assert_extent_holds_the_samples, uploaded
 
 torch.set_num_threads(1)
 
@@ -326,7 +326,9 @@ def test_host_feed_matches_jax_host_feed(tmp_path, augment):
     got = list(WeaksupFeed([PopulationDataset(paths, "rwa", **dkw)], **kw).epoch(1))
     assert len(got) == len(ref) > 0
     for bg, br in zip(got, ref):
-        assert set(bg) == set(br)
+        # the port's batch also carries each sample's extent in the bucket
+        assert set(bg) == set(br) | {"extent"}
+        assert_extent_holds_the_samples(bg)
         for k in br:
             a, b = np.asarray(bg[k]), np.asarray(br[k])
             assert a.dtype == b.dtype, (k, a.dtype, b.dtype)

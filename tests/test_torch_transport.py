@@ -37,7 +37,7 @@ from popcorn_tpu_torch.data.feed import (
 )
 from popcorn_tpu_torch.infer.evaluator import Evaluator, load_member
 from popcorn_tpu_torch.infer.sliding import run_sliding_inference
-from torch_feed_helpers import assert_batches_equal
+from torch_feed_helpers import assert_batches_equal, assert_extent_holds_the_samples
 
 torch.set_num_threads(1)
 TRANSPORT_R2_BOUND = 0.02
@@ -122,7 +122,9 @@ def test_host_feed_bf16_batches_match_jax(synth, augment):
     assert len(got) == len(ref) > 0
     assert any(isinstance(b["S1"], torch.Tensor) for b in got)
     for bg, br in zip(got, ref):
-        assert set(bg) == set(br)
+        # the port's batch also carries each sample's extent in the bucket
+        assert set(bg) == set(br) | {"extent"}
+        assert_extent_holds_the_samples(bg)
         for k in br:
             same(bg[k], br[k], k)
 

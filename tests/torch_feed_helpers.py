@@ -35,3 +35,17 @@ def assert_batches_equal(host_batches, dev_batches):
             else:
                 assert np.asarray(a).dtype == np.asarray(b).dtype, k
                 np.testing.assert_array_equal(a, b, err_msg=k)
+
+
+def assert_extent_holds_the_samples(batch):
+    """Each sample's 'extent' (r0, r1, c0, c1) lies in the bucket and its
+    admin mask is -1 (the padding) everywhere outside it."""
+    adm = np.asarray(uploaded(batch)["admin_mask"])
+    assert batch["extent"].dtype == torch.int64
+    ext = batch["extent"].numpy()
+    assert ext.shape == (adm.shape[0], 4)
+    for a, (r0, r1, c0, c1) in zip(adm, ext):
+        assert 0 <= r0 < r1 <= a.shape[0] and 0 <= c0 < c1 <= a.shape[1]
+        outside = np.ones(a.shape, bool)
+        outside[r0:r1, c0:c1] = False
+        assert (a[outside] == -1).all()
