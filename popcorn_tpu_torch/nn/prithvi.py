@@ -15,11 +15,17 @@ tokens back to 10 m with a neck of our own, one ConvTranspose2d(1024 ->
 the 16 channels at full resolution that POPCORN's head takes from the
 UNet otherwise.
 
-Each sample runs alone on its extent in the batch's bucket (the feed's
-'extent', after the batch's flips and rotations): its 16 x 16 patches,
-the extent zero-padded on the far sides to a multiple of 16, so no token
-of the bucket's padding is attended. The neck's output is cropped to the
-extent and is zero outside it.
+Each sample is patchified on its extent in the batch's bucket (the
+feed's 'extent', after the batch's flips and rotations): its 16 x 16
+patches, the extent zero-padded on the far sides to a multiple of 16, so
+no token of the bucket's padding is attended. The batch then runs as one
+packed encoder pass: the samples' tokens, each sample's cls token in front
+of its own, are concatenated, and the patch embedding, every LayerNorm,
+linear, GELU and residual add and the neck's product run once over the
+packed rows, so each weight is cast and receives its gradient once a
+batch. Attention alone runs a sample at a time, on the sample's rows of
+the packed qkv, so no token attends across samples. The neck's output is
+split back into samples, cropped to each extent and zero outside it.
 
 Layout of the parameters (torch's own, so the published names map one to
 one, compat/weights.py): linear weights (out, in), the patch embedding
@@ -34,9 +40,10 @@ flash or memory-efficient where it does not apply), never the math
 backend, whose score matrix would not fit at 14,500 tokens.
 
 The program's spans ``prithvi.embed``, ``prithvi.encoder`` (the blocks
-and the final norm) and ``prithvi.neck`` time it, and its counters
-``tokens/encoder`` (tokens attended, cls included) and ``tokens/bucket``
-(tokens the padded batch would have held) count it
+and the final norm) and ``prithvi.neck`` time it, once a batch, and its
+counters ``tokens/encoder`` (tokens attended, cls included),
+``tokens/bucket`` (tokens the padded batch would have held) and
+``encoder/passes`` (packed encoder passes, one a batch) count it
 (utils/profiling.py).
 """
 
@@ -45,8 +52,9 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import itertools
 import math
-from typing import Any, Dict, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -146,17 +154,22 @@ def _fused_attention(device: torch.device):
     return sdpa_kernel([getattr(SDPBackend, b) for b in ATTENTION_BACKENDS])
 
 
-def attention(x: torch.Tensor, p: Tree, heads: int, dtype) -> torch.Tensor:
-    """Global multi-head self-attention over the (N, D) tokens."""
+def attention(x: torch.Tensor, p: Tree, heads: int, dtype, cu: Sequence[int]) -> torch.Tensor:
+    """Multi-head self-attention over the packed (N, D) tokens: the qkv and
+    proj products over all of them, the fused attention once a sample, over
+    its rows cu[i]:cu[i+1] alone."""
     n, d = x.shape
-    qkv = _linear(x, p["qkv"], dtype).view(n, 3, heads, d // heads).permute(1, 2, 0, 3)
-    o = F.scaled_dot_product_attention(qkv[0][None], qkv[1][None], qkv[2][None])[0]
-    return _linear(o.transpose(0, 1).reshape(n, d), p["proj"], dtype)
+    qkv = _linear(x, p["qkv"], dtype).view(n, 3, heads, d // heads)
+    outs = []
+    for a, b in zip(cu[:-1], cu[1:]):
+        q, k, v = qkv[a:b].permute(1, 2, 0, 3)
+        outs.append(F.scaled_dot_product_attention(q[None], k[None], v[None])[0].transpose(0, 1))
+    return _linear(torch.cat(outs).reshape(n, d), p["proj"], dtype)
 
 
-def block(x: torch.Tensor, p: Tree, spec: PrithviSpec, dtype) -> torch.Tensor:
-    """One pre-norm block on the float32 residual stream."""
-    x = x + attention(_norm(x, p["norm1"], spec.eps), p, spec.heads, dtype)
+def block(x: torch.Tensor, p: Tree, spec: PrithviSpec, dtype, cu: Sequence[int]) -> torch.Tensor:
+    """One pre-norm block on the packed float32 residual stream."""
+    x = x + attention(_norm(x, p["norm1"], spec.eps), p, spec.heads, dtype, cu)
     h = F.gelu(_linear(_norm(x, p["norm2"], spec.eps), p["fc1"], dtype))
     return x + _linear(h, p["fc2"], dtype)
 
@@ -178,63 +191,74 @@ def patchify(x: torch.Tensor, patch: int) -> torch.Tensor:
     return x.reshape(hp * wp, c * patch * patch)
 
 
-def encode(enc: Tree, x: torch.Tensor, spec: PrithviSpec, dtype) -> torch.Tensor:
-    """One sample's (h, w, 6) input in Prithvi's band order -> its frame's
-    (Hp*Wp, D) tokens after the final norm, cls token dropped."""
-    hp, wp = grid(x.shape[0], x.shape[1], spec.patch)
+def encode(enc: Tree, xs: Sequence[torch.Tensor], spec: PrithviSpec, dtype
+           ) -> Tuple[torch.Tensor, List[int]]:
+    """The samples' (h_i, w_i, 6) inputs in Prithvi's band order -> their
+    frames' tokens after the final norm, packed: (sum of n_i + 1, D), each
+    sample's cls token in front of its n_i = Hp*Wp tokens; and the host
+    offsets cu = [0, n_0 + 1, n_0 + n_1 + 2, ...] of the samples' rows."""
+    grids = [grid(x.shape[0], x.shape[1], spec.patch) for x in xs]
+    sizes = [hp * wp for hp, wp in grids]
+    cu = list(itertools.accumulate((n + 1 for n in sizes), initial=0))
     with span("prithvi.embed"):
         pe = enc["patch_embed"]
-        tok = _linear(patchify(x, spec.patch), {"w": pe["w"].reshape(pe["w"].shape[0], -1),
-                                                "b": pe["b"]}, dtype)
-        tok = tok + pos_table(spec.dim, 1, hp, wp, tok.device)
-        h = torch.cat([enc["cls_token"].reshape(1, spec.dim), tok])
+        tok = _linear(torch.cat([patchify(x, spec.patch) for x in xs]),
+                      {"w": pe["w"].reshape(pe["w"].shape[0], -1), "b": pe["b"]}, dtype)
+        tok = tok + torch.cat([pos_table(spec.dim, 1, hp, wp, tok.device) for hp, wp in grids])
+        cls = enc["cls_token"].reshape(1, spec.dim)
+        h = torch.cat([r for t in tok.split(sizes) for r in (cls, t)])
     with span("prithvi.encoder"), _fused_attention(h.device):
         for i in range(spec.depth):
-            h = block(h, enc["blocks"][str(i)], spec, dtype)
+            h = block(h, enc["blocks"][str(i)], spec, dtype, cu)
         h = _norm(h, enc["norm"], spec.eps)
-    return h[1:]
+    return h, cu
 
 
-def neck(p: Tree, tokens: torch.Tensor, hw: Tuple[int, int], spec: PrithviSpec,
-         dtype) -> torch.Tensor:
-    """ConvTranspose2d(D -> 16, kernel = stride = patch) over the frame's
-    tokens, cropped to the extent: (h, w, 16) float32."""
-    h, w = hw
-    hp, wp = grid(h, w, spec.patch)
+def neck(p: Tree, tokens: torch.Tensor, cu: Sequence[int], boxes: Sequence[Tuple[int, ...]],
+         hw: Tuple[int, int], spec: PrithviSpec, dtype) -> torch.Tensor:
+    """ConvTranspose2d(D -> 16, kernel = stride = patch) over each frame's
+    tokens (the packed rows cu[i] + 1:cu[i + 1], its cls token left out),
+    cropped to its extent (r0, r1, c0, c1) and zero outside it in the
+    (H, W) bucket: (B, H, W, 16) float32. The product runs once over the
+    packed rows."""
+    H, W = hw
     P, wt = spec.patch, p["w"]
     w2 = wt.reshape(wt.shape[0], -1)
     if dtype is not None:
         tokens, w2 = tokens.to(dtype), w2.to(dtype)
     y = tokens @ w2
-    y = y.view(hp, wp, wt.shape[1], P, P).permute(0, 3, 1, 4, 2).reshape(hp * P, wp * P, -1)
-    return y[:h, :w].float() + p["b"]
+    out = []
+    for a, b, (r0, r1, c0, c1) in zip(cu[:-1], cu[1:], boxes):
+        hp, wp = grid(r1 - r0, c1 - c0, P)
+        f = y[a + 1:b].view(hp, wp, wt.shape[1], P, P).permute(0, 3, 1, 4, 2)
+        f = f.reshape(hp * P, wp * P, -1)[:r1 - r0, :c1 - c0].float() + p["b"]
+        out.append(F.pad(f, (0, 0, c0, W - c1, r0, H - r1)))
+    return torch.stack(out)
 
 
 def features(params: Tree, x6: torch.Tensor, extents: Optional[Sequence], spec: PrithviSpec,
              dtype, *, encoder_no_grad: bool = False, neck_no_grad: bool = False) -> torch.Tensor:
     """The member's (B, H, W, 16) float32 features of the batch ``x6``
-    (B, H, W, 6) in nn/popcorn.py::reorder_to_dda's order: each sample's
-    encoder and neck on its extent (r0, r1, c0, c1) (the whole image where
-    ``extents`` is None), zero outside. The memory tiers:
-    ``encoder_no_grad`` runs the patch embedding, the blocks and the final
-    norm without a gradient, ``neck_no_grad`` the neck too."""
+    (B, H, W, 6) in nn/popcorn.py::reorder_to_dda's order: each sample
+    patchified on its extent (r0, r1, c0, c1) (the whole image where
+    ``extents`` is None), one packed encoder pass over the batch (attention
+    a sample at a time) and the neck, zero outside each extent. The memory
+    tiers: ``encoder_no_grad`` runs the patch embedding, the blocks and the
+    final norm without a gradient, ``neck_no_grad`` the neck too."""
     b, H, W, _ = x6.shape
     x = x6[..., list(BANDS_FROM_DDA)]
     tok_grid = grid(H, W, spec.patch)
     count("tokens/bucket", b * (tok_grid[0] * tok_grid[1] + 1))
+    boxes = [(0, H, 0, W) if extents is None else tuple(int(v) for v in extents[i])
+             for i in range(b)]
+    xs = [x[i, r0:r1, c0:c1] for i, (r0, r1, c0, c1) in enumerate(boxes)]
     grad = torch.is_grad_enabled()
-    out = []
-    for i in range(b):
-        r0, r1, c0, c1 = ((0, H, 0, W) if extents is None
-                          else (int(v) for v in extents[i]))
-        hp, wp = grid(r1 - r0, c1 - c0, spec.patch)
-        count("tokens/encoder", hp * wp + 1)
-        with torch.set_grad_enabled(grad and not encoder_no_grad):
-            tokens = encode(params["encoder"], x[i, r0:r1, c0:c1], spec, dtype)
-        with torch.set_grad_enabled(grad and not neck_no_grad), span("prithvi.neck"):
-            f = neck(params["neck"], tokens, (r1 - r0, c1 - c0), spec, dtype)
-            out.append(F.pad(f, (0, 0, c0, W - c1, r0, H - r1)))
-    return torch.stack(out)
+    with torch.set_grad_enabled(grad and not encoder_no_grad):
+        tokens, cu = encode(params["encoder"], xs, spec, dtype)
+    count("tokens/encoder", cu[-1])
+    count("encoder/passes")
+    with torch.set_grad_enabled(grad and not neck_no_grad), span("prithvi.neck"):
+        return neck(params["neck"], tokens, cu, boxes, (H, W), spec, dtype)
 
 
 # ------------------------------------------------------------------------ init

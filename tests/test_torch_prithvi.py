@@ -29,7 +29,12 @@ from popcorn_tpu_torch.data.normalize import NormStats
 from popcorn_tpu_torch.nn import prithvi
 from popcorn_tpu_torch.nn.init import init_prithvi_member
 from popcorn_tpu_torch.nn.popcorn import check_config
-from popcorn_tpu_torch.train.state import TrainStep, make_optimizer, tree_flatten
+from popcorn_tpu_torch.train.state import (
+    TrainStep,
+    make_optimizer,
+    tree_flatten,
+    tree_unflatten,
+)
 from popcorn_tpu_torch.utils import profiling
 
 from port_bench.reference import prithvi as ref
@@ -88,15 +93,9 @@ def test_every_leaf_gradient_matches_the_reference(member):
     _, params, _, sd = member
     x6 = _x6(2, 1, 17, 22)
     wts = torch.randn(1, 17, 22, 16, generator=torch.Generator().manual_seed(3))
-    flat = [(p, v) for p, v in tree_flatten({k: params[k] for k in ("encoder", "neck")})]
-    leaves = [v.clone().requires_grad_(True) for _, v in flat]
-    tree = {}
-    for (p, _), v in zip(flat, leaves):
-        node = tree
-        for k in p[:-1]:
-            node = node.setdefault(k, {})
-        node[p[-1]] = v
-    got = torch.autograd.grad((prithvi.features(tree, x6, None, TINY, None) * wts).sum(), leaves)
+    tree, flat = _grad_tree(params)
+    got = torch.autograd.grad((prithvi.features(tree, x6, None, TINY, None) * wts).sum(),
+                              [v for _, v in flat])
     rsd = {k: (v.clone().requires_grad_(True) if k.split(".")[0] in ("encoder", "neck") else v)
            for k, v in sd.items()}
     out = ref.PrithviMember(rsd, heads=4).features(x6.permute(0, 3, 1, 2),
@@ -106,6 +105,14 @@ def test_every_leaf_gradient_matches_the_reference(member):
     assert len(got) == len(want) == 2 + 1 + 12 * TINY.depth + 2 + 2
     for n, a, b in zip(names, got, want):
         assert _rel(a.reshape(b.shape), b) <= 1e-4, n
+
+
+def _grad_tree(params):
+    """Copies of the encoder and neck's leaves that want a gradient: the
+    tree ``features`` takes, and its (path, leaf) pairs."""
+    flat = [(p, v.clone().requires_grad_(True))
+            for p, v in tree_flatten({k: params[k] for k in ("encoder", "neck")})]
+    return tree_unflatten(flat), flat
 
 
 def prithvi_names(flat):
@@ -157,6 +164,72 @@ def test_sample_in_a_larger_bucket_equals_the_sample_alone(member, v, hf, k):
     # attending to the padding gives other features
     whole = prithvi.features(params, bucket, None, TINY, None)
     assert not torch.allclose(whole[0, r0:r1, c0:c1], want[0], atol=1e-3)
+
+
+def _three_in_a_bucket(seed):
+    """Three samples of 13 x 18, 20 x 9 and 11 x 16 in one 24 x 24 bucket
+    and their extents: the first two at the top left, the third rotated
+    by 90 degrees with its bucket (the first's sides are no multiple of the
+    patch, nor of 16)."""
+    bh = bw = 24
+    hw = [(13, 18), (20, 9), (11, 16)]
+    g = torch.Generator().manual_seed(seed)
+    x6 = torch.zeros(3, bh, bw, 6)
+    for i, (h, w) in enumerate(hw):
+        x6[i, :h, :w] = torch.randn(h, w, 6, generator=g)
+    rot = GeneralAugParams(vflip=False, hflip=False, rot_k=1)
+    x6[2:] = dihedral(x6[2:], False, False, 1)
+    ext = torch.cat([extents_after(hw[:2], bh, bw, None), extents_after(hw[2:], bh, bw, rot)])
+    return x6, ext
+
+
+def _to(tree, device):
+    return {k: (_to(v, device) if isinstance(v, dict) else v.to(device)) for k, v in tree.items()}
+
+
+@pytest.mark.parametrize("dtype", [None, torch.bfloat16], ids=["float32", "bf16_card"])
+def test_packed_batch_equals_its_samples_alone(member, dtype, request):
+    """One packed encoder pass over three samples of different extents
+    against each sample as a batch of one: the features, and every encoder
+    and neck leaf's gradient of a fixed weighted sum of them (the sum of the
+    samples' own). float32 on the CPU at the reference tests' tolerances;
+    bf16 on a card, within a few bf16 roundings."""
+    _, params, _, _ = member
+    device = "cpu" if dtype is None else request.getfixturevalue("dev")
+    tol_f, tol_g = (1e-5, 1e-4) if dtype is None else (2 ** -6, 2 ** -5)
+    x6, ext = _three_in_a_bucket(12)
+    x6 = x6.to(device)
+    wts = torch.randn(x6.shape[:3] + (prithvi.NECK_OUT,),
+                      generator=torch.Generator().manual_seed(13)).to(device)
+    params = {k: _to(params[k], device) for k in ("encoder", "neck")}
+    tree, flat = _grad_tree(params)
+    got = prithvi.features(tree, x6, ext, TINY, dtype)
+    got_g = torch.autograd.grad((got * wts).sum(), [v for _, v in flat])
+    alone, alone_g = [], [torch.zeros_like(v) for _, v in flat]
+    for i in range(3):
+        tree, flat_i = _grad_tree(params)
+        f = prithvi.features(tree, x6[i:i + 1], ext[i:i + 1], TINY, dtype)
+        alone.append(f)
+        for acc, g in zip(alone_g, torch.autograd.grad((f * wts[i:i + 1]).sum(),
+                                                       [v for _, v in flat_i])):
+            acc += g
+    assert _rel(got.detach(), torch.cat(alone).detach()) <= tol_f
+    for (q, _), a, b in zip(flat, got_g, alone_g):
+        assert _rel(a, b) <= tol_g, q
+
+
+def test_packed_samples_stay_isolated(member):
+    """Another sample's pixels change nothing of a sample's features in
+    the packed pass, bit for bit."""
+    _, params, _, _ = member
+    x6, ext = _three_in_a_bucket(14)
+    before = prithvi.features(params, x6, ext, TINY, None)
+    r0, r1, c0, c1 = (int(v) for v in ext[1])
+    g = torch.Generator().manual_seed(15)
+    x6[1, r0:r1, c0:c1] = torch.randn(r1 - r0, c1 - c0, 6, generator=g)
+    after = prithvi.features(params, x6, ext, TINY, None)
+    assert torch.equal(after[0], before[0]) and torch.equal(after[2], before[2])
+    assert not torch.allclose(after[1], before[1])
 
 
 class _Region(Region):
@@ -277,7 +350,7 @@ def test_train_cli_trains_a_prithvi_member(tmp_path):
         recs = [json.loads(line) for line in f]
     logged = set().union(*(r.keys() for r in recs))
     assert {"time/prithvi.encoder_ms", "time/prithvi.neck_ms", "tokens/encoder",
-            "tokens/bucket"} <= logged
+            "tokens/bucket", "encoder/passes"} <= logged
     enc = next(r for r in recs if "tokens/encoder" in r)
     assert 0 < enc["tokens/encoder"] < enc["tokens/bucket"]
     path = os.path.join(trainer.experiment_folder, "last_model.pth")
@@ -377,9 +450,18 @@ def test_spans_and_counters(member):
     c = profiling.COUNTERS.summary()
     assert c["tokens/encoder"] == (3 * 4 + 1) + (5 * 3 + 1)
     assert c["tokens/bucket"] == 2 * (5 * 6 + 1)
+    assert c["encoder/passes"] == 1
     s = profiling.SPANS.summary()
-    assert s["prithvi.encoder"]["count"] == s["prithvi.embed"]["count"] == 2
-    assert s["prithvi.neck"]["count"] == 2
+    assert s["prithvi.encoder"]["count"] == s["prithvi.embed"]["count"] == 1
+    assert s["prithvi.neck"]["count"] == 1
+    # one packed pass a call, whatever the batch size
+    prithvi.features(params, _x6(7, 1, 20, 24), ext[1:], TINY, None)
+    prithvi.features(params, _x6(8, 3, 20, 24), None, TINY, None)
+    c = profiling.COUNTERS.summary()
+    assert c["encoder/passes"] == 3
+    assert c["tokens/encoder"] == (3 * 4 + 1) + 2 * (5 * 3 + 1) + 3 * (5 * 6 + 1)
+    assert c["tokens/bucket"] == 6 * (5 * 6 + 1)
+    assert profiling.SPANS.summary()["prithvi.encoder"]["count"] == 3
 
 
 # ---------------------------------------------------------- the update on a card
@@ -403,7 +485,6 @@ def test_grid_update_matches_the_plain_chain_and_repeats(dev, clip, wd, blocks, 
     decay: a norm one rounding apart moves a step by more than the
     tolerance where the decayed gradient cancels to about eps."""
     from popcorn_tpu_torch.train import adam
-    from popcorn_tpu_torch.train.state import tree_unflatten
 
     g = torch.Generator().manual_seed(1800)
     shapes = [(), (3,), (1023,), (5, 7, 3), (3, 3, 5, 7), (70001,), (64, 6, 4, 4), (300, 257)]
