@@ -71,7 +71,8 @@ Phases, each printing one JSON line:
   8. train   — the train CLI on the same region with the verify skill's
                flags at its default dtype (bf16; 1 epoch, 6 weak
                samples): finite losses, moved head, launches of A and B
-               (bf16), C and D (float32, as fused_head), last_model.pth,
+               (bf16), C and D (float32, as fused_head), the epoch log's
+               launches/adam one a step, last_model.pth,
                which the eval CLI then turns into finite maps with
                AdjCensus r2 > 0.9. The CLI must have taken the
                device-resident training feed; the train_feed line holds its
@@ -114,7 +115,8 @@ Phases, each printing one JSON line:
                its patch path (BUILTUP_PATCH_TOL); the two-process
                rehearsal (dist/multihost.py) with both workers on cuda:0
                over gloo against one rank (loss, stepped parameters, the
-               ensemble fold's sum; A-D launched in each worker's step);
+               ensemble fold's sum; A-D and the update launched in each
+               worker's step);
                the Evaluator with the patches over two data ranks and with
                the members over two ensemble ranks, both on cuda:0 over
                gloo (dist/launch.py), rank 0's written map against the
@@ -385,8 +387,32 @@ SPATIAL_LAUNCHES = {
 }
 
 
+# the kernels an eval may launch, by this script's names for them
+# (kernel_names)
+EVAL_KERNELS = ("double_conv", "double_conv_bf16", "up_block", "up_block_bf16", "head",
+                "head_bf16", "double_conv_qs", "up_block_qs", "up_block_qs_bf16",
+                "double_conv_q", "double_conv_q_bf16", "up_block_q", "up_block_q_bf16")
+
+
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
+
+
+def kernel_names(counts: dict) -> dict:
+    """``launches/<entry>`` counts (popcorn_tpu_torch/nn/cuda_lib.py::launch)
+    by the names this script gives the kernels: the C entry without
+    "popcorn_", a float32 mode without "_f32"."""
+    return {k.removeprefix("launches/").removesuffix("_f32"): v for k, v in counts.items()}
+
+
+def launches_since(before: dict, names=None) -> dict:
+    """The kernel launches since the snapshot ``before`` of the program's
+    COUNTERS (popcorn_tpu_torch/utils/profiling.py), by kernel_names: of
+    ``names`` (0 for one not launched), or of every kernel launched."""
+    from popcorn_tpu_torch.utils.profiling import COUNTERS
+
+    got = kernel_names(COUNTERS.since(before, "launches/"))
+    return got if names is None else {k: got.get(k, 0) for k in names}
 
 
 def nvidia_smi_line() -> str:
@@ -719,10 +745,9 @@ def ranked_eval(data: str, members: list, flags: list, out: str, n_data: int,
     from popcorn_tpu_torch.config import DataPaths
     from popcorn_tpu_torch.dist.mesh import make_mesh
     from popcorn_tpu_torch.infer.evaluator import Evaluator
-    from popcorn_tpu_torch.nn import double_conv as A
-    from popcorn_tpu_torch.nn import head as C
-    from popcorn_tpu_torch.nn import up_block as B
+    from popcorn_tpu_torch.utils.profiling import COUNTERS
 
+    before = COUNTERS.summary()
     mesh = make_mesh(n_data, devices=["cuda:0"] * 2, n_ensemble=n_ensemble)
     a = eval_parser().parse_args(["--data_root", data, *flags, "-r", *members])
     torch.cuda.synchronize()
@@ -735,9 +760,9 @@ def ranked_eval(data: str, members: list, flags: list, out: str, n_data: int,
         json.dump({"rank": mesh.rank, "backend": mesh.backend, "wall_s": wall,
                    "folder": ev.experiment_folder, "n_metrics": len(stats),
                    "writes": ev.logger is not None,
-                   "launches": {"double_conv_bf16": A.launches_bf16, "up_block_bf16": B.launches_bf16,
-                                "head_bf16": C.launches_bf16, "double_conv": A.launches,
-                                "up_block": B.launches, "head": C.launches}}, f)
+                   "launches": launches_since(before, ("double_conv_bf16", "up_block_bf16",
+                                                       "head_bf16", "double_conv", "up_block",
+                                                       "head"))}, f)
 
 
 def train_losses_of(folder: str) -> list:
@@ -782,16 +807,10 @@ def spatial_train_steps(mesh, dev) -> dict:
     from popcorn_tpu_torch.config import ModelConfig, TrainConfig
     from popcorn_tpu_torch.data.normalize import NormStats
     from popcorn_tpu_torch.dist.mesh import shard_batch_spatial
-    from popcorn_tpu_torch.nn import double_conv as A
-    from popcorn_tpu_torch.nn import head as C
-    from popcorn_tpu_torch.nn import up_block as B
     from popcorn_tpu_torch.train import state as train_state
     from popcorn_tpu_torch.train.trainer import ROW_KEYS
+    from popcorn_tpu_torch.utils.profiling import COUNTERS
 
-    counters = {"double_conv": (A, "launches"), "up_block": (B, "launches"),
-                "double_conv_bf16": (A, "launches_bf16"), "up_block_bf16": (B, "launches_bf16"),
-                "head": (C, "launches"), "head_bf16": (C, "launches_bf16"),
-                "head_bwd": (C, "bwd_launches")}
     tcfg = TrainConfig()
     host = shard_batch_spatial(spatial_crop(), mesh, row_keys=ROW_KEYS)
     batch = {k: (torch.from_numpy(v).to(dev) if isinstance(v, np.ndarray) else v)
@@ -811,14 +830,13 @@ def spatial_train_steps(mesh, dev) -> dict:
             new, _ = step.optimizer.update(grads, step.optimizer.init(p), p)
             return grads, aux, new
 
-        for mod, attr in counters.values():
-            setattr(mod, attr, 0)
+        before = COUNTERS.summary()
         torch.cuda.synchronize(dev)
         torch.cuda.reset_peak_memory_stats(dev)
         grads, aux, new = run()
         torch.cuda.synchronize(dev)
         peak = torch.cuda.max_memory_allocated(dev)
-        launches = {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
+        launches = launches_since(before, SPATIAL_LAUNCHES[cdt])
         rec = {"loss": float(aux["optimization_loss"]), "popcount": aux["popcount"].cpu().numpy(),
                "grads": {k: v.cpu() for k, v in train_state.tree_flatten(grads)},
                "params": {k: v.cpu() for k, v in train_state.tree_flatten(new)},
@@ -859,11 +877,10 @@ def spatial_train_cli(argv: list, out: str) -> None:
     from popcorn_tpu_torch.cli.args import model_config_from_args, train_config_from_args, train_parser
     from popcorn_tpu_torch.config import DataPaths
     from popcorn_tpu_torch.dist.mesh import make_mesh
-    from popcorn_tpu_torch.nn import double_conv as A
-    from popcorn_tpu_torch.nn import head as C
-    from popcorn_tpu_torch.nn import up_block as B
     from popcorn_tpu_torch.train.trainer import Trainer
+    from popcorn_tpu_torch.utils.profiling import COUNTERS
 
+    before = COUNTERS.summary()
     mesh = make_mesh(2, devices=["cuda:0"] * 2)
     a = train_parser().parse_args(argv)
     torch.cuda.synchronize()
@@ -876,8 +893,8 @@ def spatial_train_cli(argv: list, out: str) -> None:
         json.dump({"rank": mesh.rank, "backend": mesh.backend, "wall_s": time.perf_counter() - t0,
                    "folder": trainer.experiment_folder, "writes": trainer.is_root,
                    "feed": trainer.feed_choice,
-                   "launches": {"double_conv_bf16": A.launches_bf16, "up_block_bf16": B.launches_bf16,
-                                "head": C.launches, "head_bwd": C.bwd_launches}}, f)
+                   "launches": launches_since(before, ("double_conv_bf16", "up_block_bf16",
+                                                       "head", "head_bwd"))}, f)
 
 
 # prep: the tool-built region's tiles, a grid of PREP_TILES row x column
@@ -1096,6 +1113,7 @@ def main() -> None:
     from popcorn_tpu_torch.nn import double_conv as A
     from popcorn_tpu_torch.nn import head as C
     from popcorn_tpu_torch.nn import up_block as B
+    from popcorn_tpu_torch.utils.profiling import COUNTERS
 
     secs = cuda_lib.build(force=True)
     emit({"phase": "build", "sources": list(cuda_lib.KERNEL_SOURCES), "seconds": round(secs, 3)})
@@ -1592,7 +1610,6 @@ def main() -> None:
     from popcorn_tpu_torch.compat.weights import load_popcorn_from_dda
     from popcorn_tpu_torch.config import ModelConfig, TrainConfig
     from popcorn_tpu_torch.nn.init import init_prithvi_member
-    from popcorn_tpu_torch.train import adam as ADAM
     from popcorn_tpu_torch.train import state as opt_state_mod
 
     def adam_case(member, mparams):
@@ -1624,11 +1641,11 @@ def main() -> None:
         def adam_run():
             return opt.update(mgrads, ostate, mparams)
 
-        launches_before = ADAM.launches
+        before = COUNTERS.summary()
         k_ms = time_ms(adam_run)
-        if ADAM.launches - launches_before != KERNEL_REPS + 2:
-            raise AssertionError(f"adam: {ADAM.launches - launches_before} launches in "
-                                 f"{KERNEL_REPS + 2} updates")
+        n_upd = launches_since(before, ("adam",))["adam"]
+        if n_upd != KERNEL_REPS + 2:
+            raise AssertionError(f"adam: {n_upd} launches in {KERNEL_REPS + 2} updates")
         t0 = time.perf_counter()
         for _ in range(KERNEL_REPS):
             adam_run()
@@ -1740,21 +1757,6 @@ def main() -> None:
             save_popcorn_checkpoint(members[-1], params, consts)
         setup_s = time.perf_counter() - t0
 
-        counters = {"double_conv": (A, "launches"), "double_conv_bf16": (A, "launches_bf16"),
-                    "up_block": (B, "launches"), "up_block_bf16": (B, "launches_bf16"),
-                    "head": (C, "launches"), "head_bf16": (C, "launches_bf16"),
-                    "double_conv_qs": (A, "launches_qs"), "up_block_qs": (B, "launches_qs"),
-                    "up_block_qs_bf16": (B, "launches_qs_bf16"),
-                    "double_conv_q": (A, "launches_q"), "double_conv_q_bf16": (A, "launches_q_bf16"),
-                    "up_block_q": (B, "launches_q"), "up_block_q_bf16": (B, "launches_q_bf16")}
-
-        def reset_launches():
-            for mod, attr in counters.values():
-                setattr(mod, attr, 0)
-
-        def read_launches():
-            return {k: getattr(mod, attr) for k, (mod, attr) in counters.items()}
-
         n_patches = 4  # patch grid of a 2304x2560 region at 2048/128
 
         def run_eval(tag, extra=(), want=None, config=None, timings=None, units=n_patches,
@@ -1778,7 +1780,7 @@ def main() -> None:
                 links.append(os.path.join(mdir, os.path.basename(m)))
                 os.symlink(m, links[-1])
             argv = ["--data_root", root, *eval_flags, "-r", *links, *extra]
-            reset_launches()
+            before = COUNTERS.summary()
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if config is None:
@@ -1790,8 +1792,8 @@ def main() -> None:
                                     save=True, timings=timings)
             torch.cuda.synchronize()
             secs = time.perf_counter() - t0
-            got_l = read_launches()
-            want_l = {k: want.get(k, 0) * units for k in counters}
+            got_l = launches_since(before, EVAL_KERNELS)
+            want_l = {k: want.get(k, 0) * units for k in EVAL_KERNELS}
             if got_l != want_l:
                 raise AssertionError(f"eval {tag}: launches {got_l}, expected {want_l}")
             folder_glob = os.path.join(mdir, "eval_outputs_ensemble_*")
@@ -2007,12 +2009,12 @@ def main() -> None:
             for where in (torch.device("cpu"), dev):
                 p, step = steps[where.type]
                 tb = {k: torch.from_numpy(v).to(where) for k, v in small.items()}
-                before = (A.launches, B.launches, C.launches, C.bwd_launches, ADAM.launches)
+                before = COUNTERS.summary()
                 grads, aux = step.grads(p, tb, mask=mask.to(where), **flags)
                 new_p, _ = step.optimizer.update(grads, step.optimizer.init(p), p)
-                after = (A.launches, B.launches, C.launches, C.bwd_launches, ADAM.launches)
-                res[where.type] = (grads, aux, new_p, [a - b for a, b in zip(after, before)])
-            (g_c, aux_c, n_c, _), (g_g, aux_g, n_g, tier_launches) = res["cpu"], res["cuda"]
+                res[where.type] = (grads, aux, new_p, launches_since(
+                    before, ("double_conv", "up_block", "head", "head_bwd", "adam")))
+            (g_c, aux_c, n_c, _), (g_g, aux_g, n_g, launched) = res["cpu"], res["cuda"]
             loss_rel = abs(float(aux_g["optimization_loss"]) - float(aux_c["optimization_loss"])) / abs(
                 float(aux_c["optimization_loss"]))
             pc_rel = float(((aux_g["popcount"].cpu() - aux_c["popcount"]).abs()
@@ -2040,8 +2042,6 @@ def main() -> None:
             # on the card every tier runs the head through kernels C and D,
             # the builder (and the frozen blocks) through kernels A and B,
             # and the update as one call of adam.cu
-            launched = dict(zip(("double_conv", "up_block", "head", "head_bwd", "adam"),
-                                tier_launches))
             step_ok = (loss_rel <= STEP_RTOL and pc_rel <= STEP_RTOL
                        and grad_rel <= STEP_RTOL and upd_rel <= STEP_UPDATE_RTOL
                        and all(v > 0 for v in launched.values()) and launched["adam"] == 1)
@@ -2064,12 +2064,11 @@ def main() -> None:
                                                NormStats(device=where),
                                                train_state.make_optimizer(tcfg))
             tb = {k: torch.from_numpy(v).to(where) for k, v in small.items()}
-            before = (A.launches_bf16, B.launches_bf16, C.launches, C.bwd_launches)
+            before = COUNTERS.summary()
             grads, aux = step.grads(to_torch(params, where), tb, mask=mask.to(where), **flags)
-            after = (A.launches_bf16, B.launches_bf16, C.launches, C.bwd_launches)
-            res[where.type] = (dict(train_state.tree_flatten(grads)), aux,
-                               [x - y for x, y in zip(after, before)])
-        (g_c, aux_c, _), (g_g, aux_g, tier_launches) = res["cpu"], res["cuda"]
+            res[where.type] = (dict(train_state.tree_flatten(grads)), aux, launches_since(
+                before, ("double_conv_bf16", "up_block_bf16", "head", "head_bwd")))
+        (g_c, aux_c, _), (g_g, aux_g, launched) = res["cpu"], res["cuda"]
         loss_rel = abs(float(aux_g["optimization_loss"]) - float(aux_c["optimization_loss"])) / abs(
             float(aux_c["optimization_loss"]))
         pc_rel = float(((aux_g["popcount"].cpu() - aux_c["popcount"]).abs()
@@ -2082,7 +2081,6 @@ def main() -> None:
         vg = torch.cat([g_g[k].cpu().ravel() for k in trainable]).double()
         grad_rel = float((vg - vc).norm() / vc.norm())
         grad_corr = float(np.corrcoef(vc.numpy(), vg.numpy())[0, 1])
-        launched = dict(zip(("double_conv_bf16", "up_block_bf16", "head", "head_bwd"), tier_launches))
         step_ok = (loss_rel <= STEP_BF16_RTOL and pc_rel <= STEP_BF16_RTOL and frozen_ok and moved
                    and grad_rel <= STEP_BF16_RTOL and grad_corr >= STEP_BF16_CORR
                    and all(v > 0 for v in launched.values()))
@@ -2097,8 +2095,7 @@ def main() -> None:
         del res, g_c, g_g
 
         # --------------------------------------------------------------- 7. train
-        reset_launches()
-        C.bwd_launches = 0
+        before = COUNTERS.summary()
         torch.cuda.reset_peak_memory_stats(dev)
         t0 = time.perf_counter()
         trainer = train_cli.main([
@@ -2111,8 +2108,8 @@ def main() -> None:
         train_wall = time.perf_counter() - t0
         # at the default dtype: the builder's blocks in bf16, the training
         # head in float32 (kernels C and D, as fused_head)
-        train_launches = {"double_conv_bf16": A.launches_bf16, "up_block_bf16": B.launches_bf16,
-                          "head": C.launches, "head_bwd": C.bwd_launches}
+        train_launches = launches_since(before, ("double_conv_bf16", "up_block_bf16", "head",
+                                                 "head_bwd", "adam"))
         train_peak = torch.cuda.max_memory_allocated(dev)
         if not all(v > 0 for v in train_launches.values()):
             raise AssertionError(f"a kernel was not launched in training: {train_launches}")
@@ -2121,6 +2118,11 @@ def main() -> None:
         losses = [r["optimization_loss/train"] for r in recs if "optimization_loss/train" in r]
         if not losses or not all(math.isfinite(v) for v in losses):
             raise AssertionError(f"train losses {losses}")
+        # the epoch's log line: its launches of the update, one a step
+        epoch_log = [{"launches/adam": r.get("launches/adam"), "steps": r["step"]}
+                     for r in recs if "time/step.forward_ms" in r]
+        if epoch_log != [{"launches/adam": train_launches["adam"], "steps": train_launches["adam"]}]:
+            raise AssertionError(f"the epoch log {epoch_log}, {train_launches['adam']} updates launched")
         head0 = load_popcorn_from_dda(mcfg, head_seed=TrainConfig().seed)[0]["head"]
         moved = max(float((trainer.params["head"][k]["w"].cpu() - head0[k]["w"]).abs().max())
                     for k in C.HEAD_LAYERS)
@@ -2284,7 +2286,7 @@ def main() -> None:
             "median_step_ms": float(np.median([buckets[s]["median_ms"] for s in shapes])),
             "epoch_step_ms": epoch_ms, "samples_per_s": n_samples / (epoch_ms / 1e3),
             "cli_wall_s": train_wall, "cli_peak_mem_bytes": train_peak, "losses": losses,
-            "head_max_move": moved, "launches": train_launches,
+            "head_max_move": moved, "launches": train_launches, "epoch_log": epoch_log,
             "ckpt_eval_adj_coarse_r2": t_r2, "compute_dtype": "bfloat16",
             "seeded_steps": dtype_steps,
         })
@@ -2326,8 +2328,7 @@ def main() -> None:
                 nf_head[cdt] = {"kernel_c_ms": time_ms(lambda: C.head_apply(head_p, fx, n_out=1)),
                                 "unfused_ms": time_ms(lambda: C.head_unfused(head_p, fx, tdt))}
         del feats, fx
-        reset_launches()
-        C.bwd_launches = 0
+        before = COUNTERS.summary()
         t0 = time.perf_counter()
         trainer = train_cli.main([
             "--data_root", data, "-S2", "-NIR", "-S1", "-treg", "rwa", "-tregtrain", "rwa",
@@ -2337,7 +2338,7 @@ def main() -> None:
         ])
         torch.cuda.synchronize()
         nf_train_wall = time.perf_counter() - t0
-        nf_train_launches = {**read_launches(), "head_bwd": C.bwd_launches}
+        nf_train_launches = launches_since(before, EVAL_KERNELS + ("head_bwd",))
         with open(os.path.join(trainer.experiment_folder, "metrics.jsonl")) as f:
             nf_losses = [r["optimization_loss/train"] for r in map(json.loads, f)
                          if "optimization_loss/train" in r]
@@ -2379,14 +2380,14 @@ def main() -> None:
         with open(frames_json, "w") as f:
             json.dump(spec, f)
         n_bu = len(patch_grid((2304, 2560), 1024, 64, fourseasons=False)) * 2 * len(dates)
-        reset_launches()
+        before = COUNTERS.summary()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         written = ts_cli.main(["builtup", "--frames", frames_json, "--out-dir", os.path.join(tmp, "builtup")])
         torch.cuda.synchronize()
         bu_wall = time.perf_counter() - t0
-        bu_launches = read_launches()
-        want_bu = {k: 0 for k in counters}
+        bu_launches = launches_since(before, EVAL_KERNELS)
+        want_bu = {k: 0 for k in EVAL_KERNELS}
         want_bu.update(double_conv=6 * n_bu, up_block=4 * n_bu)
         if bu_launches != want_bu or len(written) != len(dates):
             raise AssertionError(f"builtup: launches {bu_launches}, expected {want_bu}; wrote {written}")
@@ -2433,15 +2434,15 @@ def main() -> None:
         with open(steps_json, "w") as f:
             json.dump(steps, f)
         pop_out = os.path.join(tmp, "pop_ts")
-        reset_launches()
+        before = COUNTERS.summary()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         records = ts_cli.main(["population", "--steps", steps_json, "--out-dir", pop_out,
                                *eval_flags, "-r", *members])
         torch.cuda.synchronize()
         pop_wall = time.perf_counter() - t0
-        pop_launches = read_launches()
-        want_pop = {k: MAIN_LAUNCHES.get(k, 0) * n_patches * len(steps) for k in counters}
+        pop_launches = launches_since(before, EVAL_KERNELS)
+        want_pop = {k: MAIN_LAUNCHES.get(k, 0) * n_patches * len(steps) for k in EVAL_KERNELS}
         from popcorn_tpu_torch.cli.args import eval_parser, model_config_from_args
 
         pop_cfg = model_config_from_args(eval_parser().parse_args([*eval_flags, "-r", *members]))
@@ -2515,11 +2516,11 @@ def main() -> None:
         del ref_tr, card_tr
         # the exported extractor (the CLI's checkpoint) on the card
         bparams, bbn = load_dda(dda_out, dev)
-        reset_launches()
+        before = COUNTERS.summary()
         x_ex = torch.from_numpy(np.random.default_rng(3).normal(size=(1, 512, 512, 6)).astype(np.float32)).to(dev)
         ex_score = create_building_score({"params": bparams, "bn": bbn}, x_ex, s1=True, s2=True, nir=True)
         torch.cuda.synchronize()
-        ex_launches = {k: v for k, v in read_launches().items() if v}
+        ex_launches = launches_since(before)
         emit({"phase": "dda", "tiles": [32, 8], "tile": 256, "batch": [8, 8], "epochs": 3,
               "cli_wall_s": dda_wall, "epoch_losses": dda_losses, "eval": dda_eval, "step": step_rec,
               "step_bounds": {"loss_rtol": STEP_RTOL, "grad_norm_rtol": DDA_GRAD_RTOL,
@@ -2598,11 +2599,11 @@ def main() -> None:
         sample = {k: np.transpose(a, (1, 2, 0))[None] for k, a in mos.items()}
         mconsts = to_torch(loaded[0][1], dev)
         x_sp = sp._inputs(sample, cfg32, NormStats(device=dev), slice(0, 2304), dev)
-        reset_launches()
+        before = COUNTERS.summary()
         whole_b = create_building_score(mconsts["builder"], x_sp, s1=True, s2=True, nir=True)
         chunk_b = sp.chunked_building_score(mconsts, x_sp, cfg32, None, rows_per_chunk=512)
         torch.cuda.synchronize()
-        chunk_launches = {k: v for k, v in read_launches().items() if v}
+        chunk_launches = launches_since(before)
         b_rep = close_report(chunk_b.cpu().numpy(), whole_b.cpu().numpy(), **STRIP_TOL)
         fold_whole = sp.make_spatial_ensemble(cfg32, mconsts, None, 5, device=dev)
         acc_w = fold_whole([m[0] for m in loaded], sample, sp.new_accumulators(2304, 2560, device=dev))
@@ -2610,11 +2611,11 @@ def main() -> None:
         sp._MEMBER_CHUNK_MIN_H = 2304
         try:
             fold_strips = sp.make_spatial_ensemble(cfg32, mconsts, None, 5, device=dev, strip_rows=1024)
-            reset_launches()
+            before = COUNTERS.summary()
             acc_s = fold_strips([m[0] for m in loaded], sample,
                                 sp.new_accumulators(2304, 2560, device=dev))
             torch.cuda.synchronize()
-            strip_launches = {k: v for k, v in read_launches().items() if v}
+            strip_launches = launches_since(before)
         finally:
             sp._MEMBER_CHUNK_MIN_H = min_h
         s_rep = {k: close_report(acc_s[k].cpu().numpy(), acc_w[k].cpu().numpy(), **STRIP_TOL)
@@ -2626,14 +2627,14 @@ def main() -> None:
         torch.cuda.empty_cache()
         # (c) the builtup time series' whole frames against the patch path
         # of a patch that holds the whole frame
-        reset_launches()
+        before = COUNTERS.summary()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         written_sp = ts_cli.main(["builtup", "--frames", frames_json, "--out-dir",
                                   os.path.join(tmp, "builtup_spatial"), "--spatial"])
         torch.cuda.synchronize()
         bu_sp_wall = time.perf_counter() - t0
-        bu_sp_launches = {k: v for k, v in read_launches().items() if v}
+        bu_sp_launches = launches_since(before)
         with GeoTIFF(written_sp[0]) as gt:
             bu_sp = gt.read(1, squeeze=True)
         whole_patch = sum(ts.builtup_map(bconsts, mcfg, s2f, v, patchsize=4096, device=dev)
@@ -2649,6 +2650,7 @@ def main() -> None:
         t0 = time.perf_counter()
         (l0, p0, e0), (l1, p1, e1) = launch_workers(2, device="cuda:0", out=out_params,
                                                     timeout=600, launches=worker_launches)
+        worker_launches = [kernel_names(w) for w in worker_launches]
         rehearsal_wall = time.perf_counter() - t0
         one_loss, one_pop, one_params = run_demo_step(None, device=dev)
         one_ens = run_demo_eval(None, device=dev)
@@ -2662,7 +2664,7 @@ def main() -> None:
                      r["ok"] for r in p_reps.values()), "params_worst": {worst: p_reps[worst]},
                  "worker_launches": worker_launches}
         dist_rec["rehearsal"] = d_rec
-        step_launches = {"double_conv": 6, "up_block": 4, "head": 1, "head_bwd": 1}
+        step_launches = {"double_conv": 6, "up_block": 4, "head": 1, "head_bwd": 1, "adam": 1}
         rehearsal_ok = (d_rec["loss_rel"] <= REHEARSAL_LOSS_RTOL and l0 == l1 and e0 == e1
                         and d_rec["enssum_rel"] <= REHEARSAL_LOSS_RTOL and d_rec["params_ok"]
                         and worker_launches == [step_launches, step_launches])
@@ -2887,12 +2889,13 @@ def main() -> None:
         if r.returncode != 0:
             raise AssertionError(f"parity_released --selftest exited {r.returncode}:\n{r.stdout[-4000:]}")
         selftest = json.loads(r.stdout.strip().splitlines()[-1])["selftest"]
-        surf_launches = {k: v["launches"] for k, v in selftest.items() if isinstance(v, dict)}
-        float_abc = {"double_conv.launches", "up_block.launches", "head.launches"}
+        surf_launches = {k: kernel_names(v["launches"]) for k, v in selftest.items()
+                         if isinstance(v, dict)}
+        float_abc = {"double_conv", "up_block", "head"}
         prep_checks["selftest_cli_equals_harness"] = selftest["cli_equals_harness"] is True
         prep_checks["selftest_float32_abc"] = all(
             set(surf_launches[k]) == float_abc for k in ("stitched", "spatial", "transport_bf16"))
-        prep_checks["selftest_int8s_ef"] = {"double_conv.launches_qs", "up_block.launches_qs"} <= set(
+        prep_checks["selftest_int8s_ef"] = {"double_conv_qs", "up_block_qs"} <= set(
             surf_launches["int8s"])
         # 7. the dry run: its checks raise in the rank that fails them
         t0 = time.perf_counter()

@@ -140,6 +140,7 @@ def worker_main(argv=None) -> None:
 
     import torch.distributed as dist
 
+    from ..utils.profiling import COUNTERS
     from .mesh import init_distributed, make_multihost_mesh
 
     ap = argparse.ArgumentParser()
@@ -161,8 +162,9 @@ def worker_main(argv=None) -> None:
     try:
         mesh = make_multihost_mesh(n_data_per_host=n, devices=[a.device] * n)
         assert mesh.n_data == n, mesh
+        before = COUNTERS.summary()
         loss, pop_sum, params = run_demo_step(mesh, a.state)
-        launches = _launches()
+        launches = COUNTERS.since(before, "launches/")
         ens_mesh = make_multihost_mesh(n_data_per_host=1, n_ensemble=n, devices=[a.device] * n)
         ens_sum = run_demo_eval(ens_mesh, a.state)
         if a.out is not None and mesh.is_root:
@@ -171,14 +173,6 @@ def worker_main(argv=None) -> None:
               f"enssum={ens_sum!r} launches={json.dumps(launches)}", flush=True)
     finally:
         dist.destroy_process_group()
-
-
-def _launches() -> Dict[str, int]:
-    """Kernel launches of this process's step, by kernel (A-D)."""
-    from ..nn import double_conv, head, up_block
-
-    return {"double_conv": double_conv.launches, "up_block": up_block.launches,
-            "head": head.launches, "head_bwd": head.bwd_launches}
 
 
 def flat_tree(tree, prefix="") -> Dict[str, torch.Tensor]:
@@ -202,9 +196,10 @@ def launch_workers(
     launches: Optional[list] = None,
 ) -> List[Tuple[float, float, float]]:
     """Spawn localhost workers; return [(loss, popsum, enssum), ...] by
-    process id (and append each worker's kernel launches of its step to
-    ``launches``). Raises on any worker's failure (or a missing result
-    line), with every worker's output attached."""
+    process id (and append each worker's kernel launches of its step, its
+    ``launches/<entry>`` counters, to ``launches``). Raises on any worker's
+    failure (or a missing result line), with every worker's output
+    attached."""
     from .launch import free_port
 
     coordinator = f"127.0.0.1:{free_port()}"

@@ -7,9 +7,11 @@ A library is rebuilt when its source or the shared header is newer than it.
 Nothing here runs at import time: the CPU tests import every module of the
 package on a machine without ``nvcc``.
 
-Wrappers pass tensor pointers from ``data_ptr()`` and the current stream
-as ``c_void_p``; each C entry returns ``cudaGetLastError()`` (or -1 for a
-shape it has no instantiation for) and :func:`check` raises on non-zero.
+Every wrapper launches through :func:`launch`: it passes tensors as their
+``data_ptr()`` and the current stream last; each C entry returns
+``cudaGetLastError()`` (or -1 for a shape it has no instantiation for),
+:func:`check` raises on non-zero, and a launch that returned 0 is counted
+as ``launches/<entry>`` in utils/profiling.py's ``COUNTERS``.
 """
 
 from __future__ import annotations
@@ -24,6 +26,8 @@ import time
 from typing import Dict, Iterable, List
 
 import torch
+
+from ..utils.profiling import count
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
@@ -173,15 +177,6 @@ def load(name: str) -> ctypes.CDLL:
         return _libs[name]
 
 
-def function(name: str, symbol: str, argtypes) -> "ctypes._CFuncPtr":
-    """The C entry ``symbol`` of ``csrc/<name>.cu`` with its argument types
-    declared; every entry returns an int status."""
-    fn = getattr(load(name), symbol)
-    fn.argtypes = list(argtypes)
-    fn.restype = ctypes.c_int
-    return fn
-
-
 def check(rc: int, what: str) -> None:
     """Raise for a C entry's non-zero status. -1 means the source has no
     instantiation for these channel counts (it launches nothing then)."""
@@ -191,12 +186,23 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what}: CUDA error {rc} at launch")
 
 
-def stream_ptr(device: torch.device) -> ctypes.c_void_p:
-    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
-
-
-def ptr(t: torch.Tensor) -> ctypes.c_void_p:
-    return ctypes.c_void_p(t.data_ptr())
+def launch(source: str, entry: str, argtypes, *args) -> None:
+    """Launch the C entry ``entry`` of ``csrc/<source>.cu`` (the library
+    :func:`load` gives) on the current stream of the device of
+    ``args[0]``, a tensor. ``argtypes`` are the types of ``args``, declared
+    on the library's function object at the entry's first launch; a tensor
+    passes as its data pointer, None as a null pointer, and the stream goes
+    last. Raises for a non-zero status (:func:`check`); after a zero one,
+    adds one to the counter ``launches/<entry without "popcorn_">``."""
+    fn = getattr(load(source), entry)  # ctypes keeps it on the library
+    if fn.argtypes is None:
+        fn.argtypes = [*argtypes, ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    stream = torch.cuda.current_stream(args[0].device).cuda_stream
+    rc = fn(*(a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args), stream)
+    name = entry.removeprefix("popcorn_")
+    check(rc, name)
+    count("launches/" + name)
 
 
 def require_cuda_f32(name: str, *tensors: torch.Tensor) -> None:

@@ -59,13 +59,6 @@ from .quant import (
 
 Tree = Dict[str, Any]
 
-# launches of kernels A and G (float32 and bf16 modes apart) and E, each
-# counted where its wrapper launches it
-launches = 0
-launches_bf16 = 0
-launches_qs = 0
-launches_q = 0
-launches_q_bf16 = 0
 
 
 def fold_affine(b: torch.Tensor, bn: Tree) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -117,7 +110,6 @@ def storage_dtype(name: str, x: torch.Tensor) -> torch.dtype:
 def double_conv_cuda(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
     """Launch kernel A on a contiguous float32 or bfloat16 NHWC CUDA
     tensor; the weights are rounded to x's dtype, the output is in it."""
-    global launches, launches_bf16
     dt = storage_dtype("double_conv", x)
     w1, w2 = (p[k]["w"].to(dt).contiguous() for k in ("conv1", "conv2"))
     s1, t1 = fold_affine(p["conv1"]["b"], bn["bn1"])
@@ -135,20 +127,9 @@ def double_conv_cuda(p: Tree, bn: Tree, x: torch.Tensor) -> torch.Tensor:
     out = torch.empty((b, h, w, cout), device=x.device, dtype=dt)
     if out.numel() == 0:
         return out
-    fn = cuda_lib.function(
-        "double_conv", f"popcorn_double_conv_{KERNEL_SYMBOLS[dt]}",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    )
-    P = cuda_lib.ptr
-    rc = fn(
-        P(x), P(w1), P(s1), P(t1), P(w2), P(s2), P(t2), P(out),
-        b, h, w, cin, cm, cout, cuda_lib.stream_ptr(x.device),
-    )
-    cuda_lib.check(rc, "double_conv")
-    if dt == torch.bfloat16:
-        launches_bf16 += 1
-    else:
-        launches += 1
+    cuda_lib.launch("double_conv", f"popcorn_double_conv_{KERNEL_SYMBOLS[dt]}",
+                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6,
+                    x, w1, s1, t1, w2, s2, t2, out, b, h, w, cin, cm, cout)
     return out
 
 
@@ -195,7 +176,6 @@ def double_conv_qs_plain(w1q, e1, g1, w2q, e2, g2, xq: torch.Tensor, float_out: 
 
 def double_conv_qs_cuda(w1q, e1, g1, w2q, e2, g2, xq: torch.Tensor, float_out: bool) -> torch.Tensor:
     """Launch kernel E on a contiguous int8 NHWC CUDA tensor."""
-    global launches_qs
     w1p, w2p = pack_dp4a(w1q), pack_dp4a(w2q)
     i8, f32 = torch.int8, torch.float32
     cuda_lib.require_cuda("double_conv_qs", [
@@ -210,17 +190,9 @@ def double_conv_qs_cuda(w1q, e1, g1, w2q, e2, g2, xq: torch.Tensor, float_out: b
     out = torch.empty((b, h, w, cout), device=xq.device, dtype=f32 if float_out else i8)
     if out.numel() == 0:
         return out
-    fn = cuda_lib.function(
-        "double_conv_qs", "popcorn_double_conv_qs",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7 + [ctypes.c_void_p],
-    )
-    P = cuda_lib.ptr
-    rc = fn(
-        P(xq), P(w1p), P(e1), P(g1), P(w2p), P(e2), P(g2), P(out),
-        b, h, w, cin, cm, cout, int(float_out), cuda_lib.stream_ptr(xq.device),
-    )
-    cuda_lib.check(rc, "double_conv_qs")
-    launches_qs += 1
+    cuda_lib.launch("double_conv_qs", "popcorn_double_conv_qs",
+                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 7,
+                    xq, w1p, e1, g1, w2p, e2, g2, out, b, h, w, cin, cm, cout, int(float_out))
     return out
 
 
@@ -266,7 +238,6 @@ def double_conv_q_plain(w1q, d1, t1, w2q, d2, t2, x: torch.Tensor) -> torch.Tens
 def double_conv_q_cuda(w1q, d1, t1, w2q, d2, t2, x: torch.Tensor) -> torch.Tensor:
     """Launch kernel G on a contiguous float32 or bfloat16 NHWC CUDA
     tensor; the output is in x's dtype."""
-    global launches_q, launches_q_bf16
     w1p, w2p = pack_dp4a(w1q), pack_dp4a(w2q)
     i8, f32 = torch.int8, torch.float32
     io = storage_dtype("double_conv_q", x)
@@ -282,20 +253,9 @@ def double_conv_q_cuda(w1q, d1, t1, w2q, d2, t2, x: torch.Tensor) -> torch.Tenso
     out = torch.empty((b, h, w, cout), device=x.device, dtype=io)
     if out.numel() == 0:
         return out
-    fn = cuda_lib.function(
-        "double_conv_q", f"popcorn_double_conv_q{'_bf16' if io == torch.bfloat16 else ''}",
-        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6 + [ctypes.c_void_p],
-    )
-    P = cuda_lib.ptr
-    rc = fn(
-        P(x), P(w1p), P(d1), P(t1), P(w2p), P(d2), P(t2), P(out),
-        b, h, w, cin, cm, cout, cuda_lib.stream_ptr(x.device),
-    )
-    cuda_lib.check(rc, "double_conv_q")
-    if io == torch.bfloat16:
-        launches_q_bf16 += 1
-    else:
-        launches_q += 1
+    cuda_lib.launch("double_conv_q", f"popcorn_double_conv_q{'_bf16' if io == torch.bfloat16 else ''}",
+                    [ctypes.c_void_p] * 8 + [ctypes.c_int] * 6,
+                    x, w1p, d1, t1, w2p, d2, t2, out, b, h, w, cin, cm, cout)
     return out
 
 

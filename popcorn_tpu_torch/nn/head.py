@@ -43,10 +43,6 @@ Tree = Dict[str, Any]
 HEAD_LAYERS = ("l1", "l2", "l3", "l4")
 DIMS = (16, 64, 64, 64, 2)
 
-# launches of kernel C (float32 and bf16 modes apart), counted where the
-# wrapper launches it
-launches = 0
-launches_bf16 = 0
 
 
 def head_plain(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
@@ -67,7 +63,6 @@ def head_cuda(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
     """Launch kernel C on (..., 16) contiguous CUDA features: float32 with
     one or two output channels, or bfloat16 with one; the output is in the
     features' dtype."""
-    global launches, launches_bf16
     if n_out not in (1, 2):
         raise ValueError(f"head: n_out must be 1 or 2, got {n_out}")
     bf16 = feats.dtype == torch.bfloat16
@@ -94,20 +89,9 @@ def head_cuda(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
     out = torch.empty((*lead, n_out), device=feats.device, dtype=wdt)
     if n == 0:
         return out
-    fn = cuda_lib.function(
-        "head", "popcorn_head_bf16" if bf16 else "popcorn_head_f32",
-        [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-    )
-    P = cuda_lib.ptr
-    rc = fn(
-        P(feats), *(P(t) for t in wts), P(out), n, n_out,
-        cuda_lib.stream_ptr(feats.device),
-    )
-    cuda_lib.check(rc, "head")
-    if bf16:
-        launches_bf16 += 1
-    else:
-        launches += 1
+    cuda_lib.launch("head", "popcorn_head_bf16" if bf16 else "popcorn_head_f32",
+                    [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int],
+                    feats, *wts, out, n, n_out)
     return out
 
 
@@ -134,8 +118,6 @@ def head_apply(p: Tree, feats: torch.Tensor, n_out: int = 2) -> torch.Tensor:
 
 # -- backward: kernel D -------------------------------------------------------
 
-# launches of kernel D, counted where its wrapper launches it
-bwd_launches = 0
 # kernel D's sizes, as csrc/head_bwd.cu fixes them: the flat gradient
 # vector [dW1 db1 ... dW4 db4], the pixels of a tile, and the most blocks
 # of its persistent grid (two on each of the H100's 132 SMs), each writing
@@ -173,7 +155,6 @@ def head_bwd_cuda(
     """Launch kernel D on contiguous float32 CUDA tensors: features
     (..., 16) and cotangent (..., 2). Returns dx (None unless ``need_dx``)
     and the gradients of [w1, b1, ..., w4, b4], summed over all pixels."""
-    global bwd_launches
     wts = _weights(p)
     shapes = [s for ci, co in zip(DIMS[:-1], DIMS[1:]) for s in ((ci, co), (co,))]
     for w, s in zip(wts, shapes):
@@ -196,18 +177,9 @@ def head_bwd_cuda(
     nblocks = min(-(-n // BWD_TILE), BWD_MAX_BLOCKS)
     part = torch.empty((nblocks, BWD_NPART), device=dev, dtype=torch.float32)
     flat = torch.empty((BWD_NPART,), device=dev, dtype=torch.float32)
-    fn = cuda_lib.function(
-        "head_bwd", "popcorn_head_bwd_f32",
-        [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int, ctypes.c_void_p],
-    )
-    P = cuda_lib.ptr
-    rc = fn(
-        P(feats), P(g), *(P(w) for w in wts[:-1]),
-        P(dx) if need_dx else ctypes.c_void_p(None), P(part), P(flat),
-        n, nblocks, cuda_lib.stream_ptr(dev),
-    )
-    cuda_lib.check(rc, "head_bwd")
-    bwd_launches += 1
+    cuda_lib.launch("head_bwd", "popcorn_head_bwd_f32",
+                    [ctypes.c_void_p] * 12 + [ctypes.c_longlong, ctypes.c_int],
+                    feats, g, *wts[:-1], dx, part, flat, n, nblocks)
     grads, off = [], 0
     for w in wts:  # the flat order is [dW1 db1 dW2 db2 dW3 db3 dW4 db4]
         grads.append(flat[off : off + w.numel()].view(w.shape))

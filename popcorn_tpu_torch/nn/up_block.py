@@ -66,14 +66,6 @@ from .quant import (
 
 Tree = Dict[str, Any]
 
-# launches of kernels B, F and H, each counted where its wrapper launches
-# it, with the bf16 modes apart: B's and H's bf16 I/O, F's bf16 features
-launches = 0
-launches_bf16 = 0
-launches_qs = 0
-launches_qs_bf16 = 0
-launches_q = 0
-launches_q_bf16 = 0
 
 
 def up_block_ops(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor, dtype=None) -> torch.Tensor:
@@ -101,7 +93,6 @@ def up_block_cuda(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torc
     """Launch kernel B on contiguous float32 or bfloat16 NHWC CUDA tensors
     (x1 and x2 of one dtype); the weights are rounded to it, the output is
     in it."""
-    global launches, launches_bf16
     dt = storage_dtype("up_block", x2)
     wt, w1, w2 = (w.to(dt).contiguous() for w in (
         p["tconv"]["w"], p["conv"]["conv1"]["w"], p["conv"]["conv2"]["w"]))
@@ -134,21 +125,10 @@ def up_block_cuda(p: Tree, bn: Tree, x1: torch.Tensor, x2: torch.Tensor) -> torc
         return out
     if x2.data_ptr() % 16:  # the kernel stages the skip by 16-byte loads
         x2 = x2.clone()
-    fn = cuda_lib.function(
-        "up_block", f"popcorn_up_block_{KERNEL_SYMBOLS[dt]}",
-        [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-    )
-    P = cuda_lib.ptr
-    rc = fn(
-        P(x1), P(x2), P(wt), P(bt), P(w1), P(s1), P(t1), P(w2), P(s2), P(t2), P(out),
-        b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout,
-        cuda_lib.stream_ptr(x2.device),
-    )
-    cuda_lib.check(rc, "up_block")
-    if dt == torch.bfloat16:
-        launches_bf16 += 1
-    else:
-        launches += 1
+    cuda_lib.launch("up_block", f"popcorn_up_block_{KERNEL_SYMBOLS[dt]}",
+                    [ctypes.c_void_p] * 11 + [ctypes.c_int] * 12,
+                    x1, x2, wt, bt, w1, s1, t1, w2, s2, t2, out,
+                    b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout)
     return out
 
 
@@ -252,7 +232,6 @@ def up_block_qs_cuda(wtq, et, gt, waq, ea, wbq, eb, g1, w2q, e2, g2,
                      out_dtype=None) -> torch.Tensor:
     """Launch kernel F on contiguous int8 NHWC CUDA tensors; float
     features in ``out_dtype`` (float32 or bfloat16; float32 when None)."""
-    global launches_qs, launches_qs_bf16
     odt = qs_out_dtype(float_out, out_dtype)
     # tconv codes (C1, 2, 2, Cu) -> (4 taps, C1/4, Cu) words
     wtp = pack_dp4a(wtq.permute(1, 2, 0, 3))
@@ -266,26 +245,13 @@ def up_block_qs_cuda(wtq, et, gt, waq, ea, wbq, eb, g1, w2q, e2, g2,
     out = torch.empty((b, hh, ww, cout), device=x2q.device, dtype=odt)
     if out.numel() == 0:
         return out
-    P = cuda_lib.ptr
-    args = [P(x1q), P(x2q), P(wtp), P(et), P(gt), P(wap), P(ea), P(wbp), P(eb), P(g1),
-            P(w2p), P(e2), P(g2), P(out), b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout]
-    if odt == torch.bfloat16:
-        fn = cuda_lib.function(
-            "up_block_qs", "popcorn_up_block_qs_bf16",
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-        )
-        rc = fn(*args, cuda_lib.stream_ptr(x2q.device))
-    else:
-        fn = cuda_lib.function(
-            "up_block_qs", "popcorn_up_block_qs",
-            [ctypes.c_void_p] * 14 + [ctypes.c_int] * 13 + [ctypes.c_void_p],
-        )
-        rc = fn(*args, int(float_out), cuda_lib.stream_ptr(x2q.device))
-    cuda_lib.check(rc, "up_block_qs")
-    if odt == torch.bfloat16:
-        launches_qs_bf16 += 1
-    else:
-        launches_qs += 1
+    args = [x1q, x2q, wtp, et, gt, wap, ea, wbp, eb, g1, w2p, e2, g2, out,
+            b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout]
+    # the bf16 entry always writes features; the other takes float_out
+    bf16 = odt == torch.bfloat16
+    cuda_lib.launch("up_block_qs", "popcorn_up_block_qs_bf16" if bf16 else "popcorn_up_block_qs",
+                    [ctypes.c_void_p] * 14 + [ctypes.c_int] * (12 if bf16 else 13),
+                    *args, *(() if bf16 else (int(float_out),)))
     return out
 
 
@@ -373,7 +339,6 @@ def up_block_q_cuda(wtq, dt, tt, waq, da, wbq, db, t1, w2q, d2, t2,
                     x1: torch.Tensor, x2: torch.Tensor) -> torch.Tensor:
     """Launch kernel H on contiguous NHWC CUDA tensors, both float32 or
     both bfloat16; the output is in their dtype."""
-    global launches_q, launches_q_bf16
     wtp = pack_dp4a(wtq.permute(1, 2, 0, 3))
     wap, wbp, w2p = pack_dp4a(waq), pack_dp4a(wbq), pack_dp4a(w2q)
     i8, f32 = torch.int8, torch.float32
@@ -386,21 +351,10 @@ def up_block_q_cuda(wtq, dt, tt, waq, da, wbq, db, t1, w2q, d2, t2,
     out = torch.empty((b, hh, ww, cout), device=x2.device, dtype=io)
     if out.numel() == 0:
         return out
-    fn = cuda_lib.function(
-        "up_block_q", f"popcorn_up_block_q{'_bf16' if io == torch.bfloat16 else ''}",
-        [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12 + [ctypes.c_void_p],
-    )
-    P = cuda_lib.ptr
-    rc = fn(
-        P(x1), P(x2), P(wtp), P(dt), P(tt), P(wap), P(da), P(wbp), P(db), P(t1),
-        P(w2p), P(d2), P(t2), P(out),
-        b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout, cuda_lib.stream_ptr(x2.device),
-    )
-    cuda_lib.check(rc, "up_block_q")
-    if io == torch.bfloat16:
-        launches_q_bf16 += 1
-    else:
-        launches_q += 1
+    cuda_lib.launch("up_block_q", f"popcorn_up_block_q{'_bf16' if io == torch.bfloat16 else ''}",
+                    [ctypes.c_void_p] * 14 + [ctypes.c_int] * 12,
+                    x1, x2, wtp, dt, tt, wap, da, wbp, db, t1, w2p, d2, t2, out,
+                    b, hh, ww, h, w, oy, ox, c1, cs, cu, cm, cout)
     return out
 
 

@@ -33,38 +33,6 @@ import sys
 
 import numpy as np
 
-# the kernel wrappers' launch counters, by module (nn/double_conv.py: A, E,
-# G; nn/up_block.py: B, F, H; nn/head.py: C, D)
-LAUNCH_COUNTERS = {
-    "double_conv": ("launches", "launches_bf16", "launches_qs", "launches_q", "launches_q_bf16"),
-    "up_block": ("launches", "launches_bf16", "launches_qs", "launches_qs_bf16", "launches_q",
-                 "launches_q_bf16"),
-    "head": ("launches", "launches_bf16", "bwd_launches"),
-}
-
-
-def _counter_modules():
-    from ..nn import double_conv, head, up_block
-
-    return {"double_conv": double_conv, "up_block": up_block, "head": head}
-
-
-def reset_launches() -> None:
-    for name, mod in _counter_modules().items():
-        for attr in LAUNCH_COUNTERS[name]:
-            setattr(mod, attr, 0)
-
-
-def read_launches() -> dict:
-    """The non-zero launch counters, as {'module.counter': n}."""
-    out = {}
-    for name, mod in _counter_modules().items():
-        for attr in LAUNCH_COUNTERS[name]:
-            if getattr(mod, attr):
-                out[f"{name}.{attr}"] = getattr(mod, attr)
-    return out
-
-
 # the canonical README eval config (reference README.md:167-173), as the
 # eval CLI's flags: the harness's model config is the CLI's for these
 MODEL_FLAGS = ("-S1", "-S2", "-NIR", "-occmodel", "-senbuilds", "-binit", "0.75",
@@ -131,6 +99,7 @@ def selftest(device="cuda") -> dict:
     from ..dist.mesh import resolve_device
     from ..dist.multihost import scaled_tree
     from ..nn.init import init_popcorn
+    from ..utils.profiling import COUNTERS
 
     device = str(resolve_device(device))
     out = {}
@@ -153,7 +122,7 @@ def selftest(device="cuda") -> dict:
         # --transport bf16 (lossy by construction)
         for surface, kw in (("stitched", {}), ("spatial", {"spatial": True}),
                             ("int8s", {"quantize": "int8s"}), ("transport_bf16", {"transport": "bf16"})):
-            reset_launches()
+            before = COUNTERS.summary()
             ours = evaluate(members, None, "rwa", "coarse", fourseasons=False, paths=paths,
                             patchsize=96, overlap=16, device=device, **kw)
             if surface == "stitched":
@@ -164,7 +133,8 @@ def selftest(device="cuda") -> dict:
             for k in sorted(r2):
                 print(f"  [{surface}] {k}: {r2[k]:.4f}")
             print(f"selftest OK: {surface} surface produced {len(ours)} finite metrics")
-            out[surface] = {"n_metrics": len(ours), "r2": r2, "launches": read_launches()}
+            out[surface] = {"n_metrics": len(ours), "r2": r2,
+                            "launches": COUNTERS.since(before, "launches/")}
 
         # the eval CLI with the harness's model flags: the same members,
         # region and patches give the same metrics

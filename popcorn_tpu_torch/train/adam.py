@@ -37,8 +37,6 @@ import torch
 from ..nn import cuda_lib
 from ..utils.profiling import span
 
-# updates launched, counted where the wrapper launches them
-launches = 0
 # a block's chunk of elements (csrc/adam.cu): a multiple of its threads
 # (GT) times the elements each has in flight (AU), at most GRID_CHUNK,
 # sized so that a small member still spreads over about GRID_BLOCKS blocks
@@ -60,7 +58,7 @@ DECAY, STRIDED = 1, 2
 MAX_DIM = 4
 
 _ARGTYPES = ([ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong]
-             + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 10 + [ctypes.c_void_p])
+             + [ctypes.c_void_p] * 4 + [ctypes.c_float] * 10)
 
 
 def chunk_for(total: int) -> int:
@@ -193,7 +191,6 @@ class AdamKernel:
         """Launch the update on float32 CUDA leaves (``table``'s
         arguments). Returns the new parameters, mu and nu as lists of
         leaves in that order."""
-        global launches
         if not p:
             return [], [], []
         dev = p[0].device
@@ -202,17 +199,12 @@ class AdamKernel:
         rows, lay = self.table(paths, p, g, mu, nu, decay)
         table = torch.frombuffer(rows, dtype=torch.int64).pin_memory().to(dev, non_blocking=True)
         bufs = tuple(torch.empty(lay.padded, device=dev, dtype=torch.float32) for _ in range(3))
-        P = cuda_lib.ptr
-        hyper = (clip, weight_decay, b1, b2, 1 - b1, 1 - b2, eps, bc1, bc2, -lr,
-                 cuda_lib.stream_ptr(dev))
         if lay.partial is None:
             lay.partial = torch.empty(-(-lay.total // lay.chunk), device=dev, dtype=torch.float32)
-        fn = cuda_lib.function("adam", "popcorn_adam", _ARGTYPES)
         with span("adam.update"):
-            rc = fn(P(table), len(p), lay.total, lay.chunk, P(lay.partial), *(P(b) for b in bufs),
-                    *hyper)
-        cuda_lib.check(rc, "adam")
-        launches += 1
+            cuda_lib.launch("adam", "popcorn_adam", _ARGTYPES, table, len(p), lay.total,
+                            lay.chunk, lay.partial, *bufs, clip, weight_decay, b1, b2, 1 - b1,
+                            1 - b2, eps, bc1, bc2, -lr)
         self.last = Outputs(bufs, *([b.as_strided(*v) for v in lay.views] for b in bufs))
         return self.last.p, self.last.mu, self.last.nu
 

@@ -74,7 +74,6 @@ from ..nn.popcorn import check_config
 from ..nn.prithvi import PRESETS as PRITHVI_PRESETS
 from ..utils.log import MetricsLogger, NumberList, new_log
 from ..utils.profiling import COUNTERS, SPANS, device_memory_stats, span
-from . import adam
 from . import checkpoint as ckpt
 from .state import (
     keystr,
@@ -460,24 +459,22 @@ class Trainer:
 
     def train(self):
         for _ in range(self.info["epoch"], self.tcfg.num_epochs):
-            adam_before = adam.launches
+            counts = COUNTERS.summary()
             self.train_epoch()
             # device memory per epoch (the reference's gpu_used GB,
             # run_train.py:39-40, 156-158)
             mem = device_memory_stats(self.device)
             if mem:
                 self.logger.log(mem, self.info["iter"])
-            # the epoch's median ms of each program span and its totals of
-            # each program counter (utils/profiling.py), and its launches of
-            # the optimizer kernel (one a step on a card)
+            # the epoch's median ms of each program span and what it added
+            # to each program counter (utils/profiling.py), its kernel
+            # launches among them (launches/adam: one a step on a card)
             times = SPANS.summary()
             if times:
                 self.logger.log({**{f"time/{k}_ms": v["median_ms"] for k, v in times.items()},
-                                 **COUNTERS.summary(),
-                                 "launches/adam": adam.launches - adam_before},
+                                 **COUNTERS.since(counts)},
                                 self.info["iter"])
             SPANS.reset()
-            COUNTERS.reset()
             if self.tcfg.save_model in ("last", "both"):
                 self.save_model("last")
             if (self.info["epoch"] + 1) % self.tcfg.val_every_n_epochs == 0:

@@ -15,8 +15,12 @@ not tell threads apart.
 
 A counter (``count(name, n)``) adds ``n`` to the process-wide
 ``COUNTERS``: what a section did rather than how long it took (tokens a
-step's encoder attended, steps a memory tier froze). The train CLI logs
-both registries each epoch and resets them.
+step's encoder attended, steps a memory tier froze, and each hand-written
+kernel's launches as ``launches/<entry>``, nn/cuda_lib.py::launch).
+Counters are process totals that only grow: a reader takes what they
+added between two ``COUNTERS.summary()`` snapshots (``COUNTERS.since``).
+The train CLI logs each epoch's span medians and counter differences,
+and resets the spans.
 """
 
 from __future__ import annotations
@@ -144,7 +148,8 @@ def span(name: str) -> _Section:
 
 
 class Counters:
-    """Accumulating named counts. Safe to add to from any thread."""
+    """Accumulating named counts that only grow. Safe to add to from any
+    thread."""
 
     def __init__(self):
         self.totals: Dict[str, float] = {}
@@ -154,13 +159,16 @@ class Counters:
         with self._lock:
             self.totals[name] = self.totals.get(name, 0) + n
 
-    def reset(self) -> None:
-        with self._lock:
-            self.totals.clear()
-
     def summary(self) -> Dict[str, float]:
         with self._lock:
             return dict(self.totals)
+
+    def since(self, before: Dict[str, float], prefix: str = "") -> Dict[str, float]:
+        """What each counter named ``prefix``... added since the snapshot
+        ``before`` (a ``summary()``): {name: difference}, the counters that
+        grew only."""
+        return {k: v - before.get(k, 0) for k, v in self.summary().items()
+                if k.startswith(prefix) and v != before.get(k, 0)}
 
 
 # the program's counters (module docstring)

@@ -15,6 +15,7 @@ import torch
 from popcorn_tpu_torch.config import TrainConfig
 from popcorn_tpu_torch.train import adam
 from popcorn_tpu_torch.train.state import decay_mask, leaves_at, make_optimizer, tree_flatten
+from popcorn_tpu_torch.utils.profiling import COUNTERS
 
 SHAPES = {
     "head": {"l1": {"w": (16, 64), "b": (64,)}, "l4": {"w": (64, 2), "b": (2,)}},
@@ -51,10 +52,10 @@ def test_update_on_cpu_runs_the_plain_chain_and_launches_nothing(clip, wd):
     opt = make_optimizer(TrainConfig(gradient_clip=clip, weight_decay=wd, learning_rate=1e-3))
     state = opt.init(params)
     before = {p: v.clone() for p, v in tree_flatten(params)}
-    launches = adam.launches
+    launches = COUNTERS.summary()
     new_p, new_state = opt.update(grads, state, params)
     ref_p, ref_state = opt.update_plain(grads, state, params)
-    assert adam.launches == launches
+    assert COUNTERS.since(launches, "launches/") == {}
     for tree, ref in ((new_p, ref_p), (new_state["mu"], ref_state["mu"]),
                       (new_state["nu"], ref_state["nu"])):
         got, want = tree_flatten(tree), tree_flatten(ref)
@@ -171,8 +172,8 @@ def test_table_refuses_what_the_kernel_does_not_take():
 def test_update_refuses_cpu_leaves_before_any_build():
     paths, p, g = _leaves(3)
     mu = [torch.zeros_like(v) for v in p]
-    launches = adam.launches
+    launches = COUNTERS.summary()
     kw = dict(lr=1e-3, bc1=0.1, bc2=0.001, clip=0.01, weight_decay=0.0, b1=0.9, b2=0.999, eps=1e-8)
     with pytest.raises(ValueError, match="card"):
         adam.AdamKernel().update(paths, p, g, mu, mu, decay_mask, **kw)
-    assert adam.launches == launches
+    assert COUNTERS.since(launches, "launches/") == {}

@@ -43,8 +43,25 @@ from popcorn_tpu_torch.nn import head as C
 from popcorn_tpu_torch.nn import quant
 from popcorn_tpu_torch.nn import up_block as B
 from popcorn_tpu_torch.nn.ops import conv3x3, conv_transpose_2x2, frozen_bn, pad_to_match
+from popcorn_tpu_torch.utils.profiling import COUNTERS
 
 TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _launched(before, entry):
+    """Launches of the C entry ``popcorn_<entry>`` since the COUNTERS
+    snapshot ``before`` (its counter ``launches/<entry>``)."""
+    return COUNTERS.since(before).get(f"launches/{entry}", 0)
+
+
+def _dc_q(before):
+    """Kernel G's launches since ``before``: (bf16 mode, float32 mode)."""
+    return _launched(before, "double_conv_q_bf16"), _launched(before, "double_conv_q")
+
+
+def _up_q(before):
+    """Kernel H's launches since ``before``: (bf16 mode, float32 mode)."""
+    return _launched(before, "up_block_q_bf16"), _launched(before, "up_block_q")
 
 
 @pytest.fixture(scope="module")
@@ -77,9 +94,9 @@ def test_double_conv_kernel_odd_batch(dev, cin, cm, cout):
     g = torch.Generator().manual_seed(cin)
     p, bn = _dc_params(g, dev, cin, cm, cout)
     x = _n(g, dev, 2, 37, 19, cin)
-    before = A.launches
+    before = COUNTERS.summary()
     got = A.double_conv(p, bn, x)
-    assert A.launches == before + 1
+    assert _launched(before, "double_conv_f32") == 1
     torch.testing.assert_close(got, A.double_conv_plain(p, bn, x), **TOL)
 
 
@@ -93,9 +110,9 @@ def test_up_block_kernel_pad_ring(dev, c1, cs, skip_hw, coarse_hw):
     p = {"tconv": {"w": _n(g, dev, c1, 2, 2, c1, scale=0.3), "b": _n(g, dev, c1)}, "conv": conv}
     x1 = _n(g, dev, 2, *coarse_hw, c1)
     x2 = _n(g, dev, 2, *skip_hw, cs)
-    before = B.launches
+    before = COUNTERS.summary()
     got = B.up_block(p, bn, x1, x2)
-    assert B.launches == before + 1
+    assert _launched(before, "up_block_f32") == 1
     torch.testing.assert_close(got, B.up_block_plain(p, bn, x1, x2), **TOL)
 
 
@@ -113,9 +130,9 @@ def test_up_block_kernel_tensor_core_tiling(dev, c, skip_hw, coarse_hw):
     tile, and the builder's odd 519^2 -> 1038^2."""
     g = torch.Generator().manual_seed(800 + c + skip_hw[1])
     p, bn, x1, x2 = _up_case(g, dev, c, c, skip_hw, coarse_hw)
-    before = B.launches
+    before = COUNTERS.summary()
     got = B.up_block(p, bn, x1, x2)
-    assert B.launches == before + 1
+    assert _launched(before, "up_block_f32") == 1
     torch.testing.assert_close(got, B.up_block_plain(p, bn, x1, x2), **TOL)
 
 
@@ -128,9 +145,9 @@ def test_head_kernel_ragged(dev, n_out):
         for name, ci, co in zip(C.HEAD_LAYERS, dims[:-1], dims[1:])
     }
     feats = _n(g, dev, 3, 11, 31, 16).relu()
-    before = C.launches
+    before = COUNTERS.summary()
     got = C.head_apply(head, feats, n_out)
-    assert C.launches == before + 1
+    assert _launched(before, "head_f32") == 1
     torch.testing.assert_close(got, C.head_plain(head, feats, n_out), **TOL)
 
 
@@ -155,9 +172,9 @@ def test_double_conv_kernel_bf16_odd_batch(dev, cin, cm, cout):
     g = torch.Generator().manual_seed(40 + cin)
     p, bn = _dc_params(g, dev, cin, cm, cout)
     x = _n(g, dev, 2, 37, 19, cin).to(torch.bfloat16)
-    before = A.launches_bf16
+    before = COUNTERS.summary()
     got = A.double_conv(p, bn, x)
-    assert A.launches_bf16 == before + 1
+    assert _launched(before, "double_conv_bf16") == 1
     _bf16_close(got, A.double_conv_plain(p, bn, x))
 
 
@@ -184,10 +201,10 @@ def test_double_conv_kernel_tensor_core_tiling(dev, dtype, cin, cm, cout, shape)
     g = torch.Generator().manual_seed(900 + cin + shape[1])
     p, bn = _dc_params(g, dev, cin, cm, cout)
     x = _n(g, dev, *shape, cin).to(dtype)
-    counter = "launches_bf16" if dtype == torch.bfloat16 else "launches"
-    before = getattr(A, counter)
+    entry = "double_conv_bf16" if dtype == torch.bfloat16 else "double_conv_f32"
+    before = COUNTERS.summary()
     got = A.double_conv(p, bn, x)
-    assert getattr(A, counter) == before + 1
+    assert _launched(before, entry) == 1
     _dc_close(got, A.double_conv_plain(p, bn, x))
 
 
@@ -219,9 +236,9 @@ def test_up_block_kernel_bf16_pad_ring(dev, c1, cs, skip_hw, coarse_hw):
     p = {"tconv": {"w": _n(g, dev, c1, 2, 2, c1, scale=0.3), "b": _n(g, dev, c1)}, "conv": conv}
     x1 = _n(g, dev, 2, *coarse_hw, c1).relu().to(torch.bfloat16)
     x2 = _n(g, dev, 2, *skip_hw, cs).relu().to(torch.bfloat16)
-    before = B.launches_bf16
+    before = COUNTERS.summary()
     got = B.up_block(p, bn, x1, x2)
-    assert B.launches_bf16 == before + 1
+    assert _launched(before, "up_block_bf16") == 1
     _bf16_close(got, B.up_block_plain(p, bn, x1, x2))
 
 
@@ -238,9 +255,9 @@ def test_head_kernel_strips(dev, lead):
         torch.testing.assert_close(C.head_cuda(head, feats, n_out), C.head_plain(head, feats, n_out),
                                    **TOL)
     fb = feats.to(torch.bfloat16)
-    before = C.launches_bf16
+    before = COUNTERS.summary()
     got = C.head_apply(head, fb, 1)
-    assert C.launches_bf16 == before + 1
+    assert _launched(before, "head_bf16") == 1
     _bf16_close(got, C.head_plain(head, fb, 1))
 
 
@@ -264,9 +281,9 @@ def test_head_bwd_kernel_odd_sizes(dev, lead):
     head = _head(g, dev)
     feats = _n(g, dev, *lead, 16)
     cot = _n(g, dev, *lead, 2)
-    before = C.bwd_launches
+    before = COUNTERS.summary()
     dx, grads = C.head_bwd_cuda(head, feats, cot)
-    assert C.bwd_launches == before + 1
+    assert _launched(before, "head_bwd_f32") == 1
     dx_ref, grads_ref = C.head_bwd_plain(head, feats, cot)
     torch.testing.assert_close(dx, dx_ref, **TOL)
     for got, ref in zip(grads, grads_ref):
@@ -337,9 +354,9 @@ def test_head_train_backward_launches_kernel_d(dev):
     g = torch.Generator().manual_seed(3)
     head = {k: {n: v.requires_grad_(True) for n, v in d.items()} for k, d in _head(g, dev).items()}
     feats = _n(g, dev, 2, 9, 11, 16).requires_grad_(True)
-    fwd, bwd = C.launches, C.bwd_launches
+    before = COUNTERS.summary()
     torch.tanh(C.head_train(head, feats)).sum().backward()
-    assert (C.launches, C.bwd_launches) == (fwd + 1, bwd + 1)
+    assert (_launched(before, "head_f32"), _launched(before, "head_bwd_f32")) == (1, 1)
     assert feats.grad is not None and head["l1"]["w"].grad is not None
 
 
@@ -411,9 +428,9 @@ def test_double_conv_qs_kernel_odd_batch(dev, cin, cm, cout, float_out):
     s_x, s_y1, s_out = _dc_scales(p, bn, x)
     args = A.qs_args(p, bn, s_x, s_y1, None if float_out else s_out)
     xq = quant.quantize_static(x, s_x)
-    before = A.launches_qs
+    before = COUNTERS.summary()
     got = A.double_conv_qs_cuda(*args, xq, float_out)
-    assert A.launches_qs == before + 1
+    assert _launched(before, "double_conv_qs") == 1
     ref = A.double_conv_qs_plain(*args, xq, float_out)
     # int8 codes and float32 outputs bit for bit
     assert got.dtype == ref.dtype and torch.equal(got, ref) and bool(ref.any())
@@ -430,9 +447,9 @@ def test_up_block_qs_kernel_pad_ring(dev, c1, cs, skip_hw, coarse_hw, float_out)
     s_out = None if float_out else _amax_scale(B.up_block_plain(p, bn, x1, x2))
     args = B.qs_args(p, bn, s_x1, s_x2, _amax_scale(up), _amax_scale(y1), s_out)
     x1q, x2q = quant.quantize_static(x1, s_x1), quant.quantize_static(x2, s_x2)
-    before = B.launches_qs
+    before = COUNTERS.summary()
     got = B.up_block_qs_cuda(*args, x1q, x2q, float_out)
-    assert B.launches_qs == before + 1
+    assert _launched(before, "up_block_qs") == 1
     ref = B.up_block_qs_plain(*args, x1q, x2q, float_out)
     if float_out:
         torch.testing.assert_close(got, ref, **TOL)
@@ -446,9 +463,9 @@ def test_double_conv_q_kernel_odd_batch(dev, cin, cm, cout):
     p, bn = _dc_params(g, dev, cin, cm, cout)
     x = _n(g, dev, 2, 37, 19, cin)
     args = A.q_args(p, bn)
-    before = A.launches_q
+    before = COUNTERS.summary()
     got = A.double_conv_q_cuda(*args, x)
-    assert A.launches_q == before + 1
+    assert _launched(before, "double_conv_q") == 1
     torch.testing.assert_close(got, A.double_conv_q_plain(*args, x), **TOL)
 
 
@@ -457,9 +474,9 @@ def test_up_block_q_kernel_pad_ring(dev, c1, cs, skip_hw, coarse_hw):
     g = torch.Generator().manual_seed(400 + c1 + skip_hw[0])
     p, bn, x1, x2 = _up_case(g, dev, c1, cs, skip_hw, coarse_hw)
     args = B.q_args(p, bn)
-    before = B.launches_q
+    before = COUNTERS.summary()
     got = B.up_block_q_cuda(*args, x1, x2)
-    assert B.launches_q == before + 1
+    assert _launched(before, "up_block_q") == 1
     torch.testing.assert_close(got, B.up_block_q_plain(*args, x1, x2), **TOL)
 
 
@@ -508,10 +525,10 @@ def test_up_block_qs_kernel_tensor_core_tiling(dev, skip_hw, coarse_hw, c, out):
     args, x1q, x2q = _f_case(g, dev, c, skip_hw, coarse_hw, out == "int8")
     fo = out != "int8"
     odt = torch.bfloat16 if out == "bf16" else None
-    counter = "launches_qs_bf16" if out == "bf16" else "launches_qs"
-    before = getattr(B, counter)
+    entry = "up_block_qs_bf16" if out == "bf16" else "up_block_qs"
+    before = COUNTERS.summary()
     got = B.up_block_qs_cuda(*args, x1q, x2q, fo, odt)
-    assert getattr(B, counter) == before + 1
+    assert _launched(before, entry) == 1
     ref = B.up_block_qs_plain(*args, x1q, x2q, fo)
     if odt is not None:
         ref = ref.to(odt)
@@ -530,10 +547,10 @@ def test_up_block_q_kernel_tensor_core_tiling(dev, skip_hw, coarse_hw, c, dtype)
     p, bn, x1, x2 = _up_case(g, dev, c, c, skip_hw, coarse_hw)
     x1, x2 = x1.to(dtype), x2.to(dtype)
     args = B.q_args(p, bn)
-    counter = "launches_q_bf16" if dtype == torch.bfloat16 else "launches_q"
-    before = getattr(B, counter)
+    entry = "up_block_q_bf16" if dtype == torch.bfloat16 else "up_block_q"
+    before = COUNTERS.summary()
     got = B.up_block_q_cuda(*args, x1, x2)
-    assert getattr(B, counter) == before + 1
+    assert _launched(before, entry) == 1
     ref = B.up_block_q_plain(*args, x1.float(), x2.float()).to(dtype)
     if dtype == torch.bfloat16:
         _bf16_close(got, ref)
@@ -565,16 +582,16 @@ def test_int8_up_wrappers_route_bf16_without_conversion(dev):
     up_block_qs writes bf16 features from kernel F's bf16 mode."""
     g = torch.Generator().manual_seed(1200)
     p, bn, x1, x2 = _up_case(g, dev, 8, 8, (32, 32), (16, 16))
-    n16, n32 = B.launches_q_bf16, B.launches_q
+    before = COUNTERS.summary()
     out = B.up_block_q(p, bn, x1.to(torch.bfloat16), x2.to(torch.bfloat16))
-    assert out.dtype == torch.bfloat16 and (B.launches_q_bf16, B.launches_q) == (n16 + 1, n32)
+    assert out.dtype == torch.bfloat16 and _up_q(before) == (1, 0)
     out = B.up_block_q(p, bn, x1.to(torch.bfloat16), x2)
-    assert out.dtype == torch.float32 and (B.launches_q_bf16, B.launches_q) == (n16 + 1, n32 + 1)
+    assert out.dtype == torch.float32 and _up_q(before) == (1, 1)
     s = _amax_scale(x2)
     x1q, x2q = quant.quantize_static(x1, s), quant.quantize_static(x2, s)
-    n16 = B.launches_qs_bf16
+    before = COUNTERS.summary()
     feats = B.up_block_qs(p, bn, x1q, x2q, s, s, s, s, None, dtype=torch.bfloat16)
-    assert feats.dtype == torch.bfloat16 and B.launches_qs_bf16 == n16 + 1
+    assert feats.dtype == torch.bfloat16 and _launched(before, "up_block_qs_bf16") == 1
 
 
 def test_int8_wrappers_refuse_what_the_kernels_do_not_take(dev):
@@ -624,9 +641,9 @@ def test_double_conv_qs_kernel_tensor_core_tiling(dev, shape, cin, cm, cout, out
     g = torch.Generator().manual_seed(1300 + cin + shape[1])
     fo = out == "float32"
     args, xq = _e_case(g, dev, shape, cin, cm, cout, not fo)
-    before = A.launches_qs
+    before = COUNTERS.summary()
     got = A.double_conv_qs_cuda(*args, xq, fo)
-    assert A.launches_qs == before + 1
+    assert _launched(before, "double_conv_qs") == 1
     ref = A.double_conv_qs_plain(*args, xq, fo)
     assert got.dtype == ref.dtype and torch.equal(got, ref) and bool(ref.any())
 
@@ -643,10 +660,10 @@ def test_double_conv_q_kernel_tensor_core_tiling(dev, shape, cin, cm, cout, dtyp
     p, bn = _dc_params(g, dev, cin, cm, cout)
     x = _n(g, dev, *shape, cin).to(dtype)
     args = A.q_args(p, bn)
-    counter = "launches_q_bf16" if dtype == torch.bfloat16 else "launches_q"
-    before = getattr(A, counter)
+    entry = "double_conv_q_bf16" if dtype == torch.bfloat16 else "double_conv_q"
+    before = COUNTERS.summary()
     got = A.double_conv_q_cuda(*args, x)
-    assert getattr(A, counter) == before + 1
+    assert _launched(before, entry) == 1
     ref = A.double_conv_q_plain(*args, x.float()).to(dtype)
     _dc_close(got, ref)
 
@@ -692,13 +709,13 @@ def test_double_conv_q_wrapper_routes_bf16_without_conversion(dev):
     p, bn = _dc_params(g, dev, 4, 8, 8)
     x = _n(g, dev, 1, 64, 96, 4)
     xb = x.to(torch.bfloat16)
-    n16, n32 = A.launches_q_bf16, A.launches_q
+    before = COUNTERS.summary()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats(dev)
     base = torch.cuda.memory_allocated(dev)
     out = A.double_conv_q(p, bn, xb)
     torch.cuda.synchronize()
-    assert out.dtype == torch.bfloat16 and (A.launches_q_bf16, A.launches_q) == (n16 + 1, n32)
+    assert out.dtype == torch.bfloat16 and _dc_q(before) == (1, 0)
     # no float32 copy of the input or the output: above what was allocated
     # before, the call's peak (the bf16 output, the weights' codes and
     # vectors) stays below the size of a float32 output
@@ -706,7 +723,7 @@ def test_double_conv_q_wrapper_routes_bf16_without_conversion(dev):
     _dc_close(out, A.double_conv_q_plain(*A.q_args(p, bn), x.to(torch.bfloat16).float())
               .to(torch.bfloat16))
     out = A.double_conv_q(p, bn, x)
-    assert out.dtype == torch.float32 and (A.launches_q_bf16, A.launches_q) == (n16 + 1, n32 + 1)
+    assert out.dtype == torch.float32 and _dc_q(before) == (1, 1)
 
 
 # ------------------------------------------------- the optimizer update (adam.cu)
@@ -789,12 +806,12 @@ def test_adam_kernel_matches_plain_chain_over_the_member(dev, clip, wd, scale, f
         grads = _grads(params, g, scale, frozen)
         inputs = (params, grads, state["mu"], state["nu"])
         kept = [[v.clone() for _, v in tree_flatten(t)] for t in inputs]
-        launches = adam.launches
+        before = COUNTERS.summary()
         got = opt.update(grads, state, params)
         torch.cuda.synchronize()
-        assert adam.launches == launches + 1
+        assert _launched(before, "adam") == 1
         ref = opt.update_plain(grads, state, params)
-        assert adam.launches == launches + 1
+        assert _launched(before, "adam") == 1
         _adam_close(got, ref, lr)
         for t, k in zip(inputs, kept):
             assert all(torch.equal(v, c) for (_, v), c in zip(tree_flatten(t), k))
@@ -813,7 +830,6 @@ def test_adam_kernel_odd_leaves_and_determinism(dev):
     (1024 threads x 4), a zero leaf: against the plain chain, and the same
     bits on a repeat."""
     from popcorn_tpu_torch.config import TrainConfig
-    from popcorn_tpu_torch.train import adam
     from popcorn_tpu_torch.train.state import make_optimizer, tree_flatten, tree_unflatten
 
     g = torch.Generator().manual_seed(1701)
@@ -834,9 +850,9 @@ def test_adam_kernel_odd_leaves_and_determinism(dev):
     state = opt.init(params)
     got = opt.update(grads, state, params)
     _adam_close(got, opt.update_plain(grads, state, params), 1e-2)
-    launches = adam.launches
+    before = COUNTERS.summary()
     again = opt.update(grads, state, params)
-    assert adam.launches == launches + 1
+    assert _launched(before, "adam") == 1
     for a, b in ((got[0], again[0]), (got[1]["mu"], again[1]["mu"]),
                  (got[1]["nu"], again[1]["nu"])):
         assert all(torch.equal(x, y) for (_, x), (_, y) in zip(tree_flatten(a), tree_flatten(b)))
@@ -850,7 +866,6 @@ def test_adam_kernel_odd_leaves_and_determinism(dev):
 
 def test_adam_wrapper_refuses_what_the_kernel_does_not_take(dev):
     from popcorn_tpu_torch.config import TrainConfig
-    from popcorn_tpu_torch.train import adam
     from popcorn_tpu_torch.train.state import make_optimizer
 
     g = torch.Generator().manual_seed(1702)
@@ -858,7 +873,7 @@ def test_adam_wrapper_refuses_what_the_kernel_does_not_take(dev):
     params = {"a": {"w": _n(g, dev, 4, 3)}, "b": {"w": _n(g, dev, 5)}}
     state = opt.init(params)
     grads = {"a": {"w": _n(g, dev, 4, 3)}, "b": {"w": _n(g, dev, 5)}}
-    launches = adam.launches
+    before = COUNTERS.summary()
     with pytest.raises(TypeError):
         opt.update({**grads, "b": {"w": grads["b"]["w"].double()}}, state, params)
     with pytest.raises(ValueError, match="not contiguous"):
@@ -870,7 +885,7 @@ def test_adam_wrapper_refuses_what_the_kernel_does_not_take(dev):
         opt.update({**grads, "b": {"w": grads["b"]["w"].cpu()}}, state, params)
     with pytest.raises(ValueError, match="gradient"):
         opt.update({**grads, "b": {"w": _n(g, dev, 6)}}, state, params)
-    assert adam.launches == launches
+    assert _launched(before, "adam") == 0
 
 
 def test_adam_outputs_checkpoint_as_separate_tensors(dev, tmp_path):

@@ -15,6 +15,7 @@ from popcorn_tpu.nn import unet as junet
 from popcorn_tpu.nn.pallas_conv import fused_double_conv
 from popcorn_tpu_torch.compat.weights import to_torch
 from popcorn_tpu_torch.nn import double_conv as dc
+from popcorn_tpu_torch.utils.profiling import COUNTERS
 
 torch.set_num_threads(1)
 TOL = dict(rtol=2e-5, atol=2e-5)
@@ -68,8 +69,8 @@ def test_fold_affine_matches_unfolded():
 def test_cpu_tensor_takes_plain_version_without_launch():
     rng = np.random.default_rng(13)
     p, bn = _block(rng, 2, 8, 8)
-    before = dc.launches
+    before = COUNTERS.summary()
     x = torch.from_numpy(rng.normal(size=(1, 8, 8, 2)).astype(np.float32))
     out = dc.double_conv(to_torch(p), to_torch(bn), x)
     assert out.shape == (1, 8, 8, 8) and out.device.type == "cpu"
-    assert dc.launches == before
+    assert COUNTERS.since(before, "launches/") == {}

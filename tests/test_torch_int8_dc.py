@@ -19,6 +19,7 @@ import torch
 from popcorn_tpu.nn.pallas_conv import fused_double_conv
 from popcorn_tpu_torch.compat.weights import to_torch
 from popcorn_tpu_torch.nn import double_conv as dc
+from popcorn_tpu_torch.utils.profiling import COUNTERS
 
 torch.set_num_threads(1)
 BF16 = torch.bfloat16
@@ -63,9 +64,9 @@ def test_double_conv_q_bf16_close_to_jax_interpret(shape, cm, cout):
     p, bn = _dc_block(rng, shape[-1], cm, cout)
     x = _n(rng, shape, 1.0)
     ref = _jax_q_bf16(p, bn, x)
-    before = (dc.launches_q, dc.launches_q_bf16)
+    before = COUNTERS.summary()
     got = dc.double_conv_q(to_torch(p), to_torch(bn), torch.from_numpy(x).to(BF16))
-    assert got.dtype == BF16 and (dc.launches_q, dc.launches_q_bf16) == before
+    assert got.dtype == BF16 and COUNTERS.since(before, "launches/") == {}
     assert got.shape == ref.shape
     a, b = ref.ravel(), got.float().numpy().ravel()
     assert float(np.abs(a - b).max()) < 0.05 * float(np.abs(a).max())

@@ -36,6 +36,7 @@ from popcorn_tpu_torch.compat.weights import to_torch
 from popcorn_tpu_torch.nn import double_conv as dc
 from popcorn_tpu_torch.nn import quant, unet
 from popcorn_tpu_torch.nn import up_block as ub
+from popcorn_tpu_torch.utils.profiling import COUNTERS
 
 torch.set_num_threads(1)
 BF16 = torch.bfloat16
@@ -103,10 +104,10 @@ def test_up_block_q_bf16_close_to_jax_interpret(c1, cs, hw):
                          dtype=jnp.bfloat16, quantized=True)
     assert ref.dtype == jnp.bfloat16
     ref = np.asarray(K.unpack(ref, f, 8).astype(jnp.float32))
-    before = (ub.launches_q, ub.launches_q_bf16)
+    before = COUNTERS.summary()
     got = ub.up_block_q(to_torch(p), to_torch(bn), torch.from_numpy(x1).to(BF16),
                         torch.from_numpy(x2).to(BF16))
-    assert got.dtype == BF16 and (ub.launches_q, ub.launches_q_bf16) == before
+    assert got.dtype == BF16 and COUNTERS.since(before, "launches/") == {}
     a, b = ref.ravel(), got.float().numpy().ravel()
     assert got.shape == ref.shape
     assert float(np.abs(a - b).max()) < 0.05 * float(np.abs(a).max())
@@ -163,10 +164,10 @@ def test_static_stream_bf16_cpu_route():
     jsc = K.calibrate_packed_stream(jp, jbn, K.pack(jnp.asarray(x), f), f)
     scales = {k: torch.tensor(np.float32(v)) for k, v in jsc.items()}
     xt = torch.from_numpy(x)
-    before = (ub.launches_qs, ub.launches_qs_bf16)
+    before = COUNTERS.summary()
     got = unet.unet_stream_qs(tp, tbn, xt, scales, 8, BF16)
     f32 = unet.unet_stream_qs(tp, tbn, xt, scales, 8)
-    assert (ub.launches_qs, ub.launches_qs_bf16) == before
+    assert COUNTERS.since(before, "launches/") == {}
     assert got.dtype == BF16 and f32.dtype == torch.float32
     assert torch.equal(got, f32.to(BF16))
     ref = np.asarray(K.unpack(K.packed_unet_stream_qs(jp, jbn, K.pack(jnp.asarray(x), f), f, jsc,

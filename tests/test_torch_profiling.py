@@ -3,7 +3,9 @@ popcorn_tpu/utils/profiling.py): the section timer, the torch.profiler
 trace context writing its Chrome trace on the CPU, and the memory probe
 that reads nothing without a card; then the program's spans: the
 registry's bounded window, a record_function only under a profiler, the
-spans in a trace, and the train path's spans over a CPU epoch."""
+spans in a trace, and the train path's spans over a CPU epoch; the
+counters' differences and the kernel launcher's count, with a stubbed C
+entry."""
 
 import json
 import os
@@ -12,7 +14,14 @@ import numpy as np
 import pytest
 import torch
 
-from popcorn_tpu_torch.utils.profiling import SPANS, Stopwatch, device_memory_stats, span, trace
+from popcorn_tpu_torch.utils.profiling import (
+    COUNTERS,
+    SPANS,
+    Stopwatch,
+    device_memory_stats,
+    span,
+    trace,
+)
 
 
 def test_stopwatch_and_memstats():
@@ -179,7 +188,7 @@ def test_train_logs_each_span_median_and_resets(small_trainer):
     for name in ("feed.batch", "trainer.upload", "trainer.readback") + STEP_SPANS:
         assert times[0][f"time/{name}_ms"] > 0
     # the optimizer kernel's launches of the epoch: none on the CPU
-    assert times[0]["launches/adam"] == 0
+    assert times[0].get("launches/adam", 0) == 0
     assert SPANS.summary() == {}
 
 
@@ -208,3 +217,57 @@ def test_stopwatch_adds_from_many_threads_lose_nothing():
     s = sw.summary()
     assert s["t"]["count"] == s["u"]["count"] == 32000
     assert s["u"]["total_s"] == 32000.0 and len(sw.recent["u"]) == sw.keep == 4096
+
+
+def test_counters_since_gives_what_grew():
+    before = COUNTERS.summary()
+    COUNTERS.add("test/a", 2)
+    COUNTERS.add("test/b")
+    COUNTERS.add("test/a")
+    assert COUNTERS.since(before, "test/") == {"test/a": 3, "test/b": 1}
+    mid = COUNTERS.summary()
+    COUNTERS.add("test/b", 4)
+    assert COUNTERS.since(mid, "test/") == {"test/b": 4}
+    assert COUNTERS.since(COUNTERS.summary()) == {}
+    assert COUNTERS.summary()["test/a"] - before.get("test/a", 0) == 3
+
+
+@pytest.mark.parametrize("rc,err", [(0, None), (-1, ValueError), (700, RuntimeError)],
+                         ids=["ok", "no_instantiation", "cuda_error"])
+def test_launch_counts_only_a_launch_that_returned_zero(monkeypatch, rc, err):
+    """nn/cuda_lib.py::launch with a stubbed C entry on the CPU: the entry
+    is taken from the loaded library and its types declared once, tensors
+    pass as their data pointers and the stream last; status 0 adds one to
+    ``launches/<entry without popcorn_>`` a launch, -1 raises ValueError,
+    any other status RuntimeError, and neither counts."""
+    import ctypes
+    from types import SimpleNamespace
+
+    from popcorn_tpu_torch.nn import cuda_lib
+
+    calls, declared = [], []
+
+    def entry(*args):
+        calls.append(args)
+        return rc
+
+    entry.argtypes = None  # as a ctypes function before its declaration
+    lib = SimpleNamespace(popcorn_stub_bf16=entry)
+    monkeypatch.setattr(cuda_lib, "load", lambda source: {"stub": lib}[source])
+    monkeypatch.setattr(torch.cuda, "current_stream", lambda device: SimpleNamespace(cuda_stream=77))
+    x, y = torch.zeros(4), torch.ones(2)
+    before = COUNTERS.summary()
+    for _ in range(2):
+        if err is None:
+            cuda_lib.launch("stub", "popcorn_stub_bf16", [ctypes.c_void_p] * 3 + [ctypes.c_int],
+                            x, y, None, 5)
+        else:
+            with pytest.raises(err, match="stub_bf16"):
+                cuda_lib.launch("stub", "popcorn_stub_bf16", [ctypes.c_void_p] * 3 + [ctypes.c_int],
+                                x, y, None, 5)
+        declared.append(entry.argtypes)
+    assert declared[0] == [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_void_p]
+    assert declared[1] is declared[0]  # declared once, not again a launch
+    assert entry.restype is ctypes.c_int
+    assert calls == [(x.data_ptr(), y.data_ptr(), None, 5, 77)] * 2
+    assert COUNTERS.since(before) == ({"launches/stub_bf16": 2} if err is None else {})

@@ -39,6 +39,7 @@ from popcorn_tpu_torch.nn import double_conv as dc
 from popcorn_tpu_torch.nn import quant
 from popcorn_tpu_torch.nn import up_block as ub
 from popcorn_tpu_torch.nn.popcorn import calibrate_member_scales, popcorn_forward, reorder_to_dda
+from popcorn_tpu_torch.utils.profiling import COUNTERS
 
 torch.set_num_threads(1)
 CODE_AGREE = 0.999
@@ -244,7 +245,7 @@ def test_cpu_tensors_take_plain_versions_without_launch():
     rng = np.random.default_rng(61)
     p, bn = _dc_block(rng, 2, 8, 8)
     up, ubn = _up_params(rng, 8, 8, 8)
-    before = (dc.launches_qs, dc.launches_q, ub.launches_qs, ub.launches_q)
+    before = COUNTERS.summary()
     x = torch.from_numpy(_n(rng, (1, 8, 8, 2), 1.0))
     xq = quant.quantize_static(x, _t(0.01))
     s = _t(0.02)
@@ -255,7 +256,7 @@ def test_cpu_tensors_take_plain_versions_without_launch():
     x1q, x2q = quant.quantize_static(x1, s), quant.quantize_static(x2, s)
     assert ub.up_block_qs(to_torch(up), to_torch(ubn), x1q, x2q, s, s, s, s).dtype == torch.float32
     assert ub.up_block_q(to_torch(up), to_torch(ubn), x1, x2).shape == (1, 8, 8, 8)
-    assert (dc.launches_qs, dc.launches_q, ub.launches_qs, ub.launches_q) == before
+    assert COUNTERS.since(before, "launches/") == {}
 
 
 def test_static_member_maps_close():

@@ -117,6 +117,31 @@ def test_resume_round_trips(trainer):
     assert trainer.info == {**trainer.info, "epoch": 4, "iter": 17}
 
 
+def test_train_logs_each_epochs_own_counts_and_keeps_the_totals(synth, tmp_path):
+    """Trainer.train logs what each epoch added to the program counters,
+    which are process totals that only grow (utils/profiling.py), and
+    leaves the totals as they were: every crop here is above limit1, so
+    each step freezes the encoder and adds one to steps/encoder_frozen."""
+    from popcorn_tpu_torch.config import DataPaths
+    from popcorn_tpu_torch.utils.profiling import COUNTERS, count
+
+    tcfg = TrainConfig(num_epochs=2, bucket_ladder=(128, 256, 512), logstep_train=1, max_samples=4,
+                       num_workers=1, save_dir=str(tmp_path), val_every_n_epochs=100,
+                       save_model="no", limit1=1000)
+    tr = Trainer(DataPaths(synth), ModelConfig(biasinit=0.9407), tcfg,
+                 inference_patch=128, inference_overlap=16, device="cpu")
+    count("steps/encoder_frozen", 5)  # counted before the run: not an epoch's
+    before = COUNTERS.summary()
+    it0 = tr.info["iter"]
+    tr.train()
+    epochs = [r for r in _records(tr) if "time/step.forward_ms" in r]
+    assert len(epochs) == 2
+    steps = [epochs[0]["step"] - it0, epochs[1]["step"] - epochs[0]["step"]]
+    assert all(n > 0 for n in steps)
+    assert [r["steps/encoder_frozen"] for r in epochs] == steps
+    assert COUNTERS.summary()["steps/encoder_frozen"] == before["steps/encoder_frozen"] + sum(steps)
+
+
 def test_target_test_gives_finite_census_metrics(trainer):
     out = trainer.test_target(save=True)
     assert [k for k in out if k.endswith("/r2")], list(out)
